@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Device profile of the PyTorch port's build waves and queries on one card.
+
+    python3 chip_profile.py
+
+Uses ``chip_smoke.py``'s corpus (1,000,000 x 128 clustered, seed 65537,
+M=16, efConstruction=100, max_wave_size=512).  Builds the first 990,000
+rows untraced, then traces with ``torch.profiler``:
+
+1. the last 10,000 inserts (about 20 full-width waves at ~990k rows, every
+   one scanning through the lane-min kernel);
+2. one ``knn_query(k=10)`` of 2,048 corpus rows (after a warm-up call that
+   builds the query pack).
+
+For each it prints the host wall time, the device busy share (union of the
+traced device events' intervals over the wall time, from
+``hnswindex_torch.utils.profiling.trace``) and the largest device-event
+rows; for the build also the per-phase split and the kernel's launches.
+Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+N = 1_000_000
+PREFIX = 990_000
+NQ = 2_048
+TOP = 15
+
+
+def report(name: str, res: dict) -> None:
+    print(f"== {name}: wall {res['wall_s']:.4f} s, device busy "
+          f"{res['busy_s']:.4f} s, busy share {res['busy_share']:.4f}",
+          flush=True)
+    for key, sec, count in res["rows"][:TOP]:
+        print(f"   {sec * 1e3:10.3f} ms  x{count:6d}  {key[:90]}",
+              flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device; this run needs an NVIDIA card",
+              file=sys.stderr)
+        return 2
+    import chip_smoke as S
+    from hnswindex_torch import HNSWIndex, HNSWParameters
+    from hnswindex_torch.ops import fused_scan as FS
+    from hnswindex_torch.utils.profiling import PhaseTimer, trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print(S.card_line(), flush=True)
+
+    vecs = S.clustered(N)
+    idx = HNSWIndex(S.D, "sq_euclid", HNSWParameters(
+        collection_size=N, max_wave_size=S.WAVE), device="cuda")
+    t0 = time.perf_counter()
+    idx.add(vecs[:PREFIX])
+    torch.cuda.synchronize()
+    print(f"untraced prefix build: {PREFIX} rows in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    idx.timer = PhaseTimer(idx.device)
+    FS.lane_min_scan.launches = 0
+    res = trace(lambda: idx.add(vecs[PREFIX:]), idx.device)
+    report(f"build {N - PREFIX} rows (waves at ~{PREFIX} rows)", res)
+    print(f"phases {json.dumps(idx.timer.seconds())}; lane_min_scan "
+          f"launches {FS.lane_min_scan.launches}", flush=True)
+    if FS.lane_min_scan.launches <= 0:
+        print("FAIL: the traced waves never launched the lane-min kernel")
+        return 1
+
+    q = vecs[:NQ]
+    idx.knn_query(q[:8], 10)
+    report(f"knn_query {NQ} x k=10", trace(lambda: idx.knn_query(q, 10),
+                                           idx.device))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,94 @@
+"""Batched relative-neighbour pruning.
+
+Counterpart of ``hnswindex_tpu/core/heuristic.py``: the reference's
+``Heuristic.RelativeNeighborPruning`` (Heuristic.cs:11-46) per row,
+
+* fewer valid candidates than ``max_edges`` -> keep all (Heuristic.cs:13-18);
+* otherwise sort by distance to the target and accept candidate c iff no
+  already-accepted s has d(s, c) < d(c, target), stopping at ``max_edges``
+  accepts (Heuristic.cs:22-41).
+
+The O(N^2) candidate distances are one batched product; the sequential
+accept is a scan over the sorted candidate columns.  The reference permutes
+its conflict tensor with one-hot bf16 products because TPU gathers are
+slow; here it is two exact ``torch.gather`` calls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import distance as dst
+
+
+def _accept_scan(conflict: torch.Tensor) -> torch.Tensor:
+    """Exact sequential accept over sorted candidate columns:
+    ``conflict[b, s, c]`` says earlier candidate s blocks c if s is
+    accepted.  Column c is accepted iff no accepted s < c conflicts."""
+    B, N, _ = conflict.shape
+    by_col = conflict.transpose(1, 2).contiguous()          # (B, c, s)
+    acc = torch.zeros((B, N), dtype=torch.bool, device=conflict.device)
+    for c in range(N):
+        acc[:, c] = ~torch.any(by_col[:, c, :c] & acc[:, :c], dim=1)
+    return acc
+
+
+def prune(metric: str,
+          cand_ids: torch.Tensor,     # (B, N) int, -1 = invalid
+          cand_d: torch.Tensor,       # (B, N) f32 distance to target
+          cand_vecs: torch.Tensor,    # (B, N, D) gathered candidate vectors
+          cand_norms: torch.Tensor,   # (B, N) gathered norm data
+          max_edges: int,
+          force_mask: torch.Tensor | None = None,
+          fill_to: int = 0):
+    """Select up to ``max_edges`` diverse neighbours per row.
+
+    Returns ``(sel_ids (B, max_edges) i64 padded -1, sel_count (B,) i64)``;
+    selected ids come in ascending-distance order.  ``force_mask (B,)``
+    disables masked-out rows.  ``fill_to`` tops rows whose accept set came
+    out smaller than this up with their nearest rejected candidates (the
+    removal repair uses it; construction leaves it 0)."""
+    B, N = cand_ids.shape
+    dev = cand_ids.device
+    cand_ids = cand_ids.long()
+    valid = cand_ids >= 0
+    if force_mask is not None:
+        valid = valid & force_mask[:, None]
+
+    d = torch.where(valid, cand_d, float("inf"))
+    order = torch.argsort(d, dim=1, stable=True)
+    sid = torch.gather(cand_ids, 1, order)
+    svalid = torch.gather(valid, 1, order)
+
+    cv = cand_vecs.float()
+    dots = torch.bmm(cv, cv.transpose(1, 2))
+    pd = dst.from_dot(metric, dots, cand_norms[:, :, None],
+                      cand_norms[:, None, :])
+
+    n_valid = svalid.sum(dim=1)
+    keep_all = n_valid < max_edges
+
+    conflict_u = (pd < d[:, None, :]) & valid[:, :, None] & valid[:, None, :]
+    # sorted order: cs[p, i, j] = conflict_u[p, order[p, i], order[p, j]]
+    cs = torch.gather(conflict_u, 1, order[:, :, None].expand(B, N, N))
+    cs = torch.gather(cs, 2, order[:, None, :].expand(B, N, N))
+    ar = torch.arange(N, device=dev)
+    conflict = (ar[:, None] < ar[None, :])[None] & cs
+
+    accepted = _accept_scan(conflict) & svalid
+    accepted = torch.where(keep_all[:, None], svalid, accepted)
+    accepted = accepted & (torch.cumsum(accepted, dim=1) <= max_edges)
+    count = accepted.sum(dim=1)
+
+    pos = torch.cumsum(accepted, dim=1) - 1
+    pos = torch.where(accepted, pos, max_edges)       # dropped -> spare col
+    out = torch.full((B, max_edges + 1), -1, dtype=torch.int64, device=dev)
+    out.scatter_(1, pos, torch.where(accepted, sid, -1))
+    if fill_to:
+        rej = svalid & ~accepted
+        rrank = torch.cumsum(rej, dim=1) - 1
+        take = rej & (rrank < (fill_to - count)[:, None])
+        fpos = torch.where(take, count[:, None] + rrank, max_edges)
+        out.scatter_(1, fpos, torch.where(take, sid, -1))
+        count = count + take.sum(dim=1)
+    return out[:, :max_edges], count

@@ -1,0 +1,73 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled with
+``nvcc`` into its own shared library at first use, then loaded with
+``ctypes``.  Nothing is compiled when a module is imported: the CPU paths
+never need ``nvcc``.  Libraries land in ``build/kernels/`` at the root of
+the checkout (listed in ``.gitignore``), named by a hash of the source and
+flags so an edited kernel is rebuilt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                           "-fPIC"]
+
+#: name -> loaded ctypes library, per process
+_LIBS: dict = {}
+#: name -> seconds its last build took (0.0 when the library was cached)
+build_seconds: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "hnswindex_torch/csrc at first use and need the CUDA "
+                       "toolkit")
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, compiled if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    t0 = time.perf_counter()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
+        os.replace(tmp, out)
+    build_seconds[name] = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(out))
+    _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
