@@ -10,12 +10,17 @@ rows untraced, then traces with ``torch.profiler``:
 1. the last 10,000 inserts (about 20 full-width waves at ~990k rows, every
    one scanning through the lane-min kernel);
 2. one ``knn_query(k=10)`` of 2,048 corpus rows (after a warm-up call that
-   builds the query pack).
+   builds the query pack);
+3. one ``BlockIndex.knn_query(k=10, n_probe=32)`` of the same 2,048 rows
+   against a 128-row-block index of the whole corpus (built untraced,
+   after a warm-up call), every batch scoring through the block-scores
+   kernel.
 
 For each it prints the host wall time, the device busy share (union of the
 traced device events' intervals over the wall time, from
 ``hnswindex_torch.utils.profiling.trace``) and the largest device-event
-rows; for the build also the per-phase split and the kernel's launches.
+rows; for the build also the per-phase split and the kernel's launches,
+for the block query the block-scores kernel's launches.
 Exits non-zero without a CUDA device.
 """
 
@@ -47,7 +52,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import chip_smoke as S
-    from hnswindex_torch import HNSWIndex, HNSWParameters
+    from hnswindex_torch import BlockIndex, HNSWIndex, HNSWParameters
+    from hnswindex_torch.ops import block_scores as BSC
     from hnswindex_torch.ops import fused_scan as FS
     from hnswindex_torch.utils.profiling import PhaseTimer, trace
 
@@ -78,6 +84,24 @@ def main() -> int:
     idx.knn_query(q[:8], 10)
     report(f"knn_query {NQ} x k=10", trace(lambda: idx.knn_query(q, 10),
                                            idx.device))
+
+    dev = idx.device
+    del idx
+    torch.cuda.empty_cache()
+    bix = BlockIndex(S.D, "sq_euclid", block_size=S.K2_BS, device=dev)
+    t0 = time.perf_counter()
+    bix.build(vecs)
+    torch.cuda.synchronize()
+    print(f"untraced BlockIndex build: {N} rows, {bix.n_blocks} blocks in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    bix.knn_query(q[:8], 10, n_probe=S.K2_P)
+    BSC.block_scores.launches = 0
+    report(f"BlockIndex.knn_query {NQ} x k=10 n_probe={S.K2_P}",
+           trace(lambda: bix.knn_query(q, 10, n_probe=S.K2_P), dev))
+    print(f"block_scores launches {BSC.block_scores.launches}", flush=True)
+    if BSC.block_scores.launches <= 0:
+        print("FAIL: the traced block query never launched block_scores")
+        return 1
     return 0
 
 

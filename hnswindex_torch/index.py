@@ -3,7 +3,9 @@
 Counterpart of ``hnswindex_tpu/index.py``: ``add`` builds with
 wave-batched exact-candidate inserts (core/construct.py) and ``knn_query``
 serves unfiltered layer-0 k-NN through the packed engine (core/pack.py),
-then refines the returned pairs in full precision.
+or, when the pack does not fit ``pack_max_bytes``, through block tables
+built on the device (block.py, the at-scale fallback), then refines the
+returned pairs in full precision.
 
 The device owns the graph state; the host owns slot allocation, level
 sampling (numpy RNG, seeded exactly like the reference), capacity growth
@@ -13,6 +15,8 @@ and the wave schedule.  Everything outside the slice raises
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -150,6 +154,8 @@ class HNSWIndex:
         self._length = 0             # high-water slot mark (GraphData.cs:25)
         self._count_host = 0         # host mirror of state.count
         self._pack = None            # lazily built QueryPack
+        self._pack_refusal = ""      # why _get_pack last returned None
+        self._block_fb = None        # lazily built DeviceBlockTables
         self._host_vectors: Optional[np.ndarray] = None
         # upper-node panel: ids of every node with level >= 1
         self._upper_np = np.empty(0, np.int32)
@@ -164,6 +170,7 @@ class HNSWIndex:
 
     def _invalidate_caches(self) -> None:
         self._pack = None
+        self._block_fb = None
         self._host_vectors = None
 
     def _grow_to(self, needed: int) -> None:
@@ -280,8 +287,10 @@ class HNSWIndex:
             self._host_vectors = self._state.vectors.cpu().numpy()
         return self._host_vectors
 
-    def _get_pack(self) -> PK.QueryPack:
-        """The packed-neighbourhood tables, built on first use."""
+    def _get_pack(self) -> Optional[PK.QueryPack]:
+        """The packed-neighbourhood tables, built on first use.  None when
+        the pack does not fit ``pack_max_bytes`` (``_pack_refusal`` is then
+        "budget", which the block fallback gates on)."""
         p = self.params
         if p.pack_queries == "off" or (p.pack_queries == "auto"
                                        and self._count_host
@@ -295,8 +304,8 @@ class HNSWIndex:
         K = min(self._state.nbr0.shape[1], 2 * p.max_edges)
         res_dtype = resolve_pack_dtype(p, C, K, self.dim)
         if res_dtype is None:
-            raise _todo("serving past pack_max_bytes (the block fallback)",
-                        "queue 1 item 12")
+            self._pack_refusal = "budget"
+            return None
         # entry set: the lowest upper level whose population fits the scan
         lvl = self._state.level.cpu().numpy()
         act = self._state.active.cpu().numpy()
@@ -315,6 +324,74 @@ class HNSWIndex:
             self._cfg, self._state, torch.as_tensor(padded).to(self.device),
             res_dtype)
         return self._pack
+
+    def _get_block_fallback(self):
+        """At-scale serving fallback: when the query pack does not fit its
+        budget, plain layer-0 ``knn_query`` is served from query-only block
+        tables built ON THE DEVICE from the bf16 coarse table
+        (block.build_device_block_tables: no host mirror) by routed block
+        scoring, instead of the unpacked beam.
+
+        Engages only when ALL hold: params.block_fallback == "auto", the
+        pack path is enabled and would have been used (count >=
+        pack_min_count) but was refused for its budget.  Invalidated on
+        every mutation like the pack."""
+        if self._block_fb is not None:
+            return self._block_fb
+        p = self.params
+        if (p.block_fallback != "auto" or p.pack_queries == "off"
+                or self._count_host < p.pack_min_count):
+            return None
+        if self._get_pack() is not None or self._pack_refusal != "budget":
+            return None
+        from .block import build_device_block_tables
+        # prefer the bf16 coarse table over a float32 ranking table: half
+        # the tile memory and scoring bandwidth, and the f64 refine re-ranks
+        # the oversampled panel exactly
+        src = self._state.coarse_table
+        if src is None:
+            src = self._state.vlo
+        # int8 tiles when the graph state plus the tiles (at src's dtype)
+        # and 1 GiB of transients would pass 80% of the device's memory.
+        # The budget is the card's total memory (HNSW_HBM_BYTES overrides
+        # it); on the CPU, without the override, tiles are never quantized.
+        budget = os.environ.get("HNSW_HBM_BYTES")
+        if budget is not None:
+            budget = int(budget)
+        elif self.device.type == "cuda":
+            budget = torch.cuda.mem_get_info(self.device)[1]
+        quantize = False
+        if budget is not None:
+            state_bytes = sum(
+                getattr(self._state, f.name).nbytes
+                for f in dataclasses.fields(self._state))
+            tile_rows = -(-self._count_host // 96) * 128   # ~75% target fill
+            quantize = (state_bytes
+                        + tile_rows * self.dim * src.element_size()
+                        + (1 << 30) > int(0.80 * budget))
+        self._block_fb = build_device_block_tables(
+            self.metric, src, self._state.active.cpu().numpy(),
+            seed=(p.random_seed if p.random_seed >= 0 else None),
+            quantize=quantize)
+        return self._block_fb
+
+    def _block_fallback_query(self, fb, q: np.ndarray, k: int
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+        """Serve a batch through the device block tables + refine."""
+        from .block import device_block_query
+        n = q.shape[0]
+        # the probe count scales with the table so the probed corpus
+        # fraction (hence recall) holds as blocks multiply
+        n_probe = max(8, fb.n_blocks // 1024)
+        out_ids = np.empty((n, k), np.int32)
+        out_d = np.empty((n, k), np.float32)
+        for i in range(0, n, QUERY_BATCH):
+            j = min(n, i + QUERY_BATCH)
+            qt = torch.as_tensor(q[i:j]).to(self.device)
+            _, ids = device_block_query(self.metric, fb, qt, k, n_probe)
+            out_ids[i:j], out_d[i:j] = self._refine(q[i:j],
+                                                    ids.cpu().numpy(), k)
+        return out_ids, out_d
 
     def _refine(self, q: np.ndarray, ids: np.ndarray, k: int
                 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -343,6 +420,9 @@ class HNSWIndex:
             return (np.full((n, k), -1, np.int32),
                     np.full((n, k), np.nan, np.float32))
         ef = max(self.params.min_nn, k)          # HNSWIndex.cs:115
+        fb = self._get_block_fallback()
+        if fb is not None:
+            return self._block_fallback_query(fb, q, k)
         ids = self._search_ids(q, ef)
         out_ids = np.empty((n, k), np.int32)
         out_d = np.empty((n, k), np.float32)
@@ -356,6 +436,11 @@ class HNSWIndex:
         expand = max(1, self.params.query_expand)
         max_iters = (self._cfg.search_iter_factor * ef) // expand + 16
         pk = self._get_pack()
+        if pk is None:
+            raise _todo("layer-0 search past pack_max_bytes without the "
+                        "block fallback (the unpacked beam; the fallback "
+                        "needs block_fallback='auto' and count >= "
+                        "pack_min_count)", "queue 1 item 8")
         n = q.shape[0]
         out = np.empty((n, ef), np.int32)
         for i in range(0, n, QUERY_BATCH):

@@ -67,6 +67,16 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def prebuild(names) -> None:
+    """Compile and load several kernels at once (one ``nvcc`` process per
+    source, all started together) instead of one after another at first
+    use."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(library, names))
+
+
 def check(err: int, what: str) -> None:
     """Raise when a kernel's C entry point reported a CUDA error."""
     if err != 0:

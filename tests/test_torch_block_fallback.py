@@ -1,0 +1,110 @@
+"""The facade's at-scale block fallback, forced at small scale (analogs of
+the reference's tests/test_large_corpus_paths.py block-fallback tests).
+
+The pack budget is shrunk to zero, so plain layer-0 ``knn_query`` must be
+served from the device-built block tables (bf16 tiles off the coarse
+table, or int8 tiles when the assumed device memory is too small) instead
+of raising for the unported unpacked beam.  Bars: self-recall@1 > 0.85
+(the reference's own bar), distances ascending, a mutation drops the
+tables, ``block_fallback="off"`` keeps the ``NotImplementedError``.  The
+tables' parity with the reference's is in tests/test_torch_block.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import hnswindex_torch as T
+from hnswindex_torch.ops import block_scores as TBS
+
+torch.set_num_threads(1)
+
+N, DIM = 2000, 24
+
+
+def _params(**kw):
+    return T.HNSWParameters(collection_size=N, pack_queries="on",
+                            pack_max_bytes=0, pack_min_count=0, **kw)
+
+
+@pytest.fixture(scope="module")
+def built():
+    vecs = np.random.default_rng(4242).random((N, DIM), dtype=np.float32)
+    ix = T.HNSWIndex(DIM, parameters=_params(), device="cpu")
+    return ix, ix.add(vecs), vecs
+
+
+def _check(ix, ids, vecs):
+    rid, rd = ix.knn_query(vecs, k=1)
+    assert rid.dtype == np.int32 and rd.dtype == np.float32
+    assert float((rid[:, 0] == ids).mean()) > 0.85
+    r5, d5 = ix.knn_query(vecs[:200], k=5)
+    assert np.all(np.diff(np.nan_to_num(d5, nan=np.inf), axis=1) >= -1e-6)
+    direct = ((vecs[r5].astype(np.float64)
+               - vecs[:200, None, :].astype(np.float64)) ** 2).sum(-1)
+    np.testing.assert_allclose(d5, direct, rtol=1e-5, atol=1e-6)
+
+
+def test_block_fallback_engages_when_pack_cannot_fit(built, monkeypatch):
+    monkeypatch.delenv("HNSW_HBM_BYTES", raising=False)
+    ix, ids, vecs = built
+    ix._invalidate_caches()
+    assert ix._get_pack() is None and ix._pack_refusal == "budget"
+    n0 = TBS.block_scores.launches
+    _check(ix, ids, vecs)
+    fb = ix._block_fb
+    assert fb is not None, "block fallback did not engage"
+    # tiles come off the bf16 coarse table; a CPU index never quantizes
+    assert fb.blk_vecs.dtype == torch.bfloat16
+    assert int(fb.blk_fill.sum()) == N
+    assert TBS.block_scores.launches == n0        # CPU: no kernel launch
+
+
+def test_block_fallback_int8_tiles(built, monkeypatch):
+    """Forced by shrinking the assumed device memory."""
+    monkeypatch.setenv("HNSW_HBM_BYTES", "1")
+    ix, ids, vecs = built
+    ix._invalidate_caches()
+    _check(ix, ids, vecs)
+    assert ix._block_fb.blk_vecs.dtype == torch.int8
+    ix._invalidate_caches()
+
+
+def test_block_fallback_unmirrored_refine(built, monkeypatch):
+    """Past the host-mirror budget the panel is refined on the device."""
+    from hnswindex_torch import index as TI
+    monkeypatch.delenv("HNSW_HBM_BYTES", raising=False)
+    ix, ids, vecs = built
+    base = ix.knn_query(vecs[:64], k=3)
+    monkeypatch.setattr(TI, "MIRROR_MAX_BYTES", 0)
+    assert not ix._mirrorable()
+    got = ix.knn_query(vecs[:64], k=3)
+    np.testing.assert_array_equal(got[0], base[0])
+    np.testing.assert_allclose(got[1], base[1], rtol=1e-4, atol=1e-5)
+
+
+def test_block_fallback_invalidated_by_add(monkeypatch):
+    monkeypatch.delenv("HNSW_HBM_BYTES", raising=False)
+    vecs = np.random.default_rng(4245).random((900, 16), dtype=np.float32)
+    ix = T.HNSWIndex(16, parameters=_params(), device="cpu")
+    ids = ix.add(vecs[:600])
+    ix.knn_query(vecs[:10], k=1)
+    assert ix._block_fb is not None
+    more = ix.add(vecs[600:])
+    assert ix._block_fb is None                    # dropped with the pack
+    rid, _ = ix.knn_query(vecs[600:], k=1)
+    assert ix._block_fb is not None
+    assert int(ix._block_fb.blk_fill.sum()) == 900
+    assert float((rid[:, 0] == more).mean()) > 0.85
+
+
+@pytest.mark.parametrize("why", ["off", "below_pack_min_count"])
+def test_block_fallback_off_keeps_its_error(why):
+    vecs = np.random.default_rng(4243).random((300, 16), dtype=np.float32)
+    p = _params(block_fallback="off") if why == "off" else _params()
+    if why != "off":
+        p.pack_min_count = 32768
+    ix = T.HNSWIndex(16, parameters=p, device="cpu")
+    ix.add(vecs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ix.knn_query(vecs[:10], k=1)
+    assert ix._block_fb is None

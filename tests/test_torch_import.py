@@ -20,14 +20,21 @@ ROOT = PKG.parent
 # CPU path without compiling anything.
 _PROBE = """
 import json, sys, torch
-import hnswindex_torch, hnswindex_torch.convert
-from hnswindex_torch.ops import fused_scan, _cuda
+import hnswindex_torch, hnswindex_torch.convert, hnswindex_torch.block
+from hnswindex_torch.ops import block_scores, fused_scan, _cuda
 c = torch.zeros((256, 8), dtype=torch.bfloat16)
 m, b = fused_scan.rank_transform('sq_euclid', torch.zeros(256),
                                  torch.ones(256, dtype=torch.bool))
 v, i = fused_scan.lane_min_scan(c, m, b, torch.zeros((2, 8)),
                                 torch.full((2,), -1, dtype=torch.int32), BS=64)
+ix = hnswindex_torch.BlockIndex(8, block_size=16, device="cpu")
+ix.build(torch.rand((100, 8), generator=torch.Generator().manual_seed(0))
+         .numpy())
+bi, _ = ix.knn_query(ix._h_vecs[0, :2], 1, n_probe=2)
 print(json.dumps({"jax": "jax" in sys.modules,
+                  "block_ids": bi[:, 0].tolist(),
+                  "block_want": ix._h_ids[0, :2].tolist(),
+                  "block_launches": block_scores.block_scores.launches,
                   "triton": "triton" in sys.modules,
                   "shape": list(i.shape),
                   "launches": fused_scan.lane_min_scan.launches,
@@ -54,6 +61,14 @@ def test_kernel_module_imports_without_toolchain(probe):
     assert not probe["triton"]
     assert probe["shape"] == [2, 64] and probe["launches"] == 0
     assert probe["libs"] == []
+
+
+def test_block_module_runs_without_jax_or_toolchain(probe):
+    """hnswindex_torch.block builds and answers on the CPU in a process
+    that has neither jax nor nvcc, through the kernel's plain version."""
+    assert not probe["jax"] and not probe["triton"]
+    assert probe["block_ids"] == probe["block_want"]
+    assert probe["block_launches"] == 0 and probe["libs"] == []
 
 
 def test_no_forbidden_imports_in_port():

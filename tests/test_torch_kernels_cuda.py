@@ -7,7 +7,11 @@ installed; there the suite's conftest (which configures jax) is left out:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-Bars: lane-min scan vals at rtol=atol=1e-4, ids equal on >= 0.999 of live
+Bars: block scores (K2) against its plain version at rtol=atol=1e-4 for
+float32 and bfloat16 tiles alike (both widen the same stored values and sum
+in float32; only the order of the sums differs); a 3,000-row BlockIndex on
+the card scores through K2 and is exact when every block is probed.
+Lane-min scan vals at rtol=atol=1e-4, ids equal on >= 0.999 of live
 lanes, dead lanes -1; exact_knn2 on the card against the same call on the
 CPU: ids equal on >= 0.99 of entries, distances at rtol=atol=1e-5 where
 ids agree; a 2,000-row build on the card through the kernel keeps the row
@@ -19,6 +23,7 @@ import torch
 
 import hnswindex_torch as T
 from hnswindex_torch.core import construct as TC
+from hnswindex_torch.ops import block_scores as TBS
 from hnswindex_torch.ops import bruteforce as TB
 from hnswindex_torch.ops import distance as tdst
 from hnswindex_torch.ops import fused_scan as TF
@@ -132,3 +137,82 @@ def test_trace_sees_the_kernel_on_card(dev):
     names = [r[0] for r in res["rows"]]
     assert any("lane_min_scan" in n for n in names), names
     assert 0.0 < res["busy_s"] <= res["wall_s"]
+
+
+def _blocks_case(metric, NB, BS, D, B, P, dtype, dev, seed=11):
+    rng = np.random.default_rng(seed)
+    blk = rng.random((NB, BS, D)).astype(np.float32)
+    q = rng.random((B, D)).astype(np.float32)
+    if metric == "ucosine":
+        blk /= np.linalg.norm(blk, axis=-1, keepdims=True)
+        q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    blk[:, BS - BS // 4:] = 0.0                 # partly filled blocks
+    q[1] = 0.0                                  # a zero query
+    bids = rng.integers(0, NB, (B, P)).astype(np.int32)
+    bids[rng.random((B, P)) < 0.1] = -1         # routing pads
+    return (torch.from_numpy(blk).to(dev).to(dtype),
+            torch.from_numpy(bids).to(dev), torch.from_numpy(q).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("metric", ["sq_euclid", "cosine", "ucosine"])
+@pytest.mark.parametrize("NB,BS,D,B,P", [
+    (64, 128, 128, 100, 8),         # the serving geometry, 16-byte loads
+    (33, 192, 50, 13, 5),           # D the vector width does not divide
+    (200, 64, 36, 257, 7),          # vector loads for f32, scalar for bf16
+])
+def test_block_scores_matches_ref_on_card(dev, metric, dtype, NB, BS, D, B,
+                                          P):
+    blk, bids, q = _blocks_case(metric, NB, BS, D, B, P, dtype, dev)
+    n0 = TBS.block_scores.launches
+    got = TBS.block_scores(metric, blk, bids, q)
+    torch.cuda.synchronize()
+    assert TBS.block_scores.launches == n0 + 1
+    want = TBS.block_scores_ref(metric, blk, bids, q)
+    assert got.shape == (B, P * BS) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if metric == "cosine":
+        assert (got[1] == 1.0).all()            # zero query: exactly 1
+        assert (got.reshape(B, P, BS)[:, :, -1] == 1.0).all()   # zero rows
+
+
+def test_block_scores_checks_its_inputs_on_card(dev):
+    blk, bids, q = _blocks_case("sq_euclid", 8, 64, 32, 4, 2, torch.float32,
+                                dev)
+    with pytest.raises(ValueError):
+        TBS.block_scores("sq_euclid", blk, bids.cpu(), q)
+    with pytest.raises(ValueError):
+        TBS.block_scores("sq_euclid", blk[:, :, ::2], bids, q[:, ::2])
+    with pytest.raises(TypeError):
+        TBS.block_scores("sq_euclid", blk, bids.long(), q)
+    wide = torch.zeros((2, 64, 12288), device=dev)       # > 48 KB of smem
+    with pytest.raises(ValueError, match="shared memory"):
+        TBS.block_scores("sq_euclid", wide, bids[:, :1] * 0,
+                         torch.zeros((4, 12288), device=dev))
+
+
+def test_block_index_on_card_runs_the_kernel(dev):
+    rng = np.random.default_rng(65537)
+    n, dim = 3000, 32
+    centers = rng.random((40, dim)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 40, n)]
+            + 0.05 * rng.standard_normal((n, dim)).astype(np.float32))
+    ix = T.BlockIndex(dim, block_size=64, device=dev)
+    ix.build(vecs)
+    n0 = TBS.block_scores.launches
+    q = vecs[:200]
+    ids, dists = ix.knn_query(q, 10, n_probe=ix.n_blocks)
+    assert TBS.block_scores.launches > n0
+    d = ((q[:, None, :].astype(np.float64)
+          - vecs[None].astype(np.float64)) ** 2).sum(-1)
+    gt = np.argsort(d, axis=1)[:, :10]
+    rec = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, gt)])
+    assert rec > 0.999, rec
+    assert (np.diff(dists, axis=1) >= 0).all()
+    new = ix.add(vecs[:50] + 5.0)
+    ix.remove(np.arange(100))
+    got, _ = ix.knn_query(vecs[:50] + 5.0, 1, n_probe=8)
+    assert (got[:, 0] == new).mean() > 0.9
+    back, _ = ix.knn_query(vecs[:100], 10, n_probe=8)
+    assert not np.isin(back, np.arange(100)).any()
