@@ -11,7 +11,12 @@
    version on the same inputs at the build's shapes (B=512 queries, D=128,
    BS=1024 lanes, C=1,007,616 rows, and a ragged C) and checks vals at
    rtol=atol=1e-4, identical dead lanes and >= 0.999 id agreement on live
-   lanes; times both with CUDA events.
+   lanes; times both with CUDA events and prints the achieved TFLOP/s and
+   the share of the bound.  The same bars hold for cosine at the full shape
+   (per-column mult, a zero-norm row), a short prefix (C=20,000: few lane
+   groups per split of the corpus walk), a ragged wave (B=300), an odd
+   depth (D=100, tiles filled by plain loads) and a corpus of duplicate
+   rows, where the ids must be exactly the lowest columns.
    Kernel phase, block scores (K2): kernel against plain version at the
    block path's shapes (13,568 blocks of 128 x 128, 1,024 queries x 32
    probes; float32 tiles for the three metrics, bfloat16 tiles for
@@ -118,20 +123,32 @@ def bound(flops: float, peak: float, nbytes: float) -> dict:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def kernel_phase(C: int) -> dict:
-    """K1 against its plain version on the card at one corpus size."""
+def kernel_phase(C: int, B: int = WAVE, d: int = D,
+                 metric: str = "sq_euclid", dup: bool = False,
+                 timed: bool = True) -> dict:
+    """K1 against its plain version on the card at one shape.  ``dup``
+    builds the corpus from seven distinct rows, so every lane ties exactly
+    across its groups and across the kernel's splits of the corpus walk;
+    the ids must then be exactly the plain version's (the lowest columns)."""
     import torch
+    from hnswindex_torch.ops import distance as dst
     from hnswindex_torch.ops import fused_scan as FS
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED + C)
-    x = torch.rand((C, D), generator=g, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + C + B + d)
+    x = torch.rand((C, d), generator=g, device=dev)
+    if dup:
+        x = x[:7].repeat(-(-C // 7), 1)[:C].contiguous()
+    x[5] = 0.0                                   # a zero-norm row
     coarse = x.to(torch.bfloat16)
     active = torch.rand((C,), generator=g, device=dev) < 0.9
-    mult, bias = FS.rank_transform("sq_euclid", (x * x).sum(1), active)
-    q = torch.rand((WAVE, D), generator=g, device=dev)
-    excl = torch.randint(0, C, (WAVE,), generator=g, device=dev,
+    active[5] = True
+    mult, bias = FS.rank_transform(metric, dst.norm_data(metric, x), active)
+    q = torch.rand((B, d), generator=g, device=dev)
+    excl = torch.randint(0, C, (B,), generator=g, device=dev,
                          dtype=torch.int32)
+    name = (f"{metric} C={C} B={B} D={d} BS={BS}"
+            + (" duplicate rows" if dup else ""))
 
     kv, ki = FS.lane_min_scan(coarse, mult, bias, q, excl, BS=BS)
     torch.cuda.synchronize()
@@ -139,32 +156,53 @@ def kernel_phase(C: int) -> dict:
     torch.cuda.synchronize()
     live = rv < FS.DEAD
     if not torch.equal(kv < FS.DEAD, live):
-        fail(f"K1 dead lanes differ from the plain version at C={C}")
+        fail(f"K1 dead lanes differ from the plain version at {name}")
     if not torch.equal(ki[~live], torch.full_like(ki[~live], -1)):
-        fail(f"K1 dead lanes carry ids at C={C}")
+        fail(f"K1 dead lanes carry ids at {name}")
     err = (kv[live] - rv[live]).abs()
     tol = 1e-4 + 1e-4 * rv[live].abs()
     if bool((err > tol).any()):
-        fail(f"K1 vals off at C={C}: max abs err {err.max().item()}")
+        fail(f"K1 vals off at {name}: max abs err {err.max().item()}")
     agree = (ki[live] == ri[live]).float().mean().item()
     if agree < 0.999:
-        fail(f"K1 ids agree on {agree} of live lanes at C={C}")
-    ms = time_ms(lambda: FS.lane_min_scan(coarse, mult, bias, q, excl,
-                                          BS=BS), 10)
-    plain_ms = time_ms(lambda: FS.lane_min_scan_ref(coarse, mult, bias, q,
-                                                    excl, BS=BS), 3)
-    # bound: bf16 products on the tensor cores; every input read once
-    # (corpus, mult, bias, q, exclude), both outputs written once
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (coarse, mult, bias, q, excl, kv, ki))
-    res = dict(C=C, max_abs_err=err.max().item(), id_agree=agree, ms=ms,
-               plain_ms=plain_ms, library_ms=None,
-               **bound(2.0 * WAVE * C * D, PEAK_BF16, nbytes))
-    print(f"kernel phase K1 C={C} B={WAVE} D={D} BS={BS}: max_abs_err="
-          f"{res['max_abs_err']:.3e} id_agree={agree:.6f} kernel {ms:.3f} ms"
-          f" plain {plain_ms:.3f} ms bound {res['bound_ms']:.4f} ms "
-          f"({res['bound_by']})", flush=True)
+        fail(f"K1 ids agree on {agree} of live lanes at {name}")
+    if dup and not torch.equal(ki, ri):
+        fail(f"K1 ids are not exactly the lowest columns at {name}")
+    res = dict(C=C, B=B, D=d, metric=metric, max_abs_err=err.max().item(),
+               id_agree=agree, library_ms=None)
+    line = (f"kernel phase K1 {name}: max_abs_err={res['max_abs_err']:.3e} "
+            f"id_agree={agree:.6f}")
+    if timed:
+        ms = time_ms(lambda: FS.lane_min_scan(coarse, mult, bias, q, excl,
+                                              BS=BS), 10)
+        plain_ms = time_ms(lambda: FS.lane_min_scan_ref(coarse, mult, bias,
+                                                        q, excl, BS=BS), 3)
+        # bound: bf16 products on the tensor cores; every input read once
+        # (corpus, mult, bias, q, exclude), both outputs written once
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (coarse, mult, bias, q, excl, kv, ki))
+        flops = 2.0 * B * C * d
+        res.update(ms=ms, plain_ms=plain_ms, tflops=flops / ms / 1e9,
+                   **bound(flops, PEAK_BF16, nbytes))
+        res["bound_share"] = res["bound_ms"] / ms
+        line += (f" kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+                 f"{res['bound_ms']:.4f} ms ({res['bound_by']}); achieved "
+                 f"{res['tflops']:.1f} TFLOP/s, {res['bound_share']:.3f} of "
+                 f"the bound")
+    print(line, flush=True)
     return res
+
+
+def kernel_phases() -> dict:
+    """Every K1 comparison; ``full`` is the build wave's shape (the one the
+    kernels line reports)."""
+    out = dict(full=kernel_phase(FULL_C), ragged=kernel_phase(RAGGED_C))
+    out["cosine"] = kernel_phase(FULL_C, metric="cosine")
+    out["short_prefix"] = kernel_phase(20_000)
+    out["ragged_wave"] = kernel_phase(RAGGED_C, B=300)
+    out["odd_depth"] = kernel_phase(200_003, d=100)
+    out["duplicate_rows"] = kernel_phase(200_003, dup=True, timed=False)
+    return out
 
 
 def block_tiles(NB: int, BS_: int, dtype):
@@ -411,8 +449,8 @@ def main() -> int:
           f"{_cuda.build_seconds['fused_scan']:.2f} s and "
           f"{_cuda.build_seconds['block_scores']:.2f} s)", flush=True)
 
-    k_full = kernel_phase(FULL_C)
-    k_rag = kernel_phase(RAGGED_C)
+    k1 = kernel_phases()
+    k_full = k1["full"]
     k2 = block_phases()
 
     # -- main path ------------------------------------------------------
@@ -474,7 +512,8 @@ def main() -> int:
     print(json.dumps({"summary": {
         "n": n, "build_s": build_s, "build_inserts_per_s": n / build_s,
         "phases_s": phases, "queries_per_s": qs, "recall_at_10": recall,
-        "kernel_ragged": k_rag, "block_path": blockp, "fallback": fallb,
+        "lane_min_scan_phases": k1, "block_path": blockp,
+        "fallback": fallb,
         "block_scores_phases": k2}}), flush=True)
     print(card, flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

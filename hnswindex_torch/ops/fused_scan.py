@@ -17,7 +17,11 @@ distance, with inactive rows folded to +3e38:
 * ucosine:   mult = -1,       bias = 0         (key = d - 1)
 
 ``lane_min_scan`` launches the CUDA kernel in ``csrc/fused_scan.cu`` for a
-CUDA tensor and runs the plain ``lane_min_scan_ref`` for a CPU tensor.
+CUDA tensor and runs the plain ``lane_min_scan_ref`` for a CPU tensor.  The
+kernel multiplies on the tensor cores; to fill the card it cuts the corpus
+walk into contiguous splits of whole lane groups (``_split_count``), each
+split writes a partial result, and a second small kernel merges them in
+split order.  ``merge_lane_min_partials`` is that merge's plain version.
 """
 
 from __future__ import annotations
@@ -31,6 +35,10 @@ BIG = 3.0e38
 DEAD = 1.0e37
 #: rows of the plain version's key panel per chunk (bounds its memory)
 _REF_CHUNK = 1 << 17
+#: output tile of one thread block of the kernel (TQ and TL in the source)
+_TILE_Q, _TILE_L = 128, 128
+#: fewest lane groups worth a split of their own
+_MIN_GROUPS_PER_SPLIT = 4
 
 
 def rank_transform(metric: str, norms: torch.Tensor, active: torch.Tensor):
@@ -92,6 +100,29 @@ def lane_min_scan_ref(coarse: torch.Tensor, mult: torch.Tensor,
     return vals, ids.to(torch.int32)
 
 
+def merge_lane_min_partials(pvals: torch.Tensor, pids: torch.Tensor):
+    """Plain version of the kernel's merge pass: ``pvals/pids (S, B, BS)``
+    are the results of scanning S contiguous corpus splits, in corpus
+    order, with global column ids.  A later split replaces a lane only when
+    strictly smaller, so the lowest column keeps an exact tie."""
+    vals, ids = pvals[0], pids[0]
+    for s in range(1, pvals.shape[0]):
+        better = pvals[s] < vals
+        vals = torch.where(better, pvals[s], vals)
+        ids = torch.where(better, pids[s], ids)
+    return vals, ids
+
+
+def _split_count(B: int, BS: int, C: int, n_sm: int) -> int:
+    """Splits of the corpus walk for one launch: as many as give every SM a
+    block, but none shorter than ``_MIN_GROUPS_PER_SPLIT`` lane groups, so
+    a short prefix launches no empty block and no useless merge."""
+    tiles = -(-B // _TILE_Q) * -(-BS // _TILE_L)
+    groups = -(-C // BS)
+    return max(1, min(n_sm // max(1, tiles),
+                      groups // _MIN_GROUPS_PER_SPLIT))
+
+
 def _launch(coarse, mult, bias, q, exclude, BS: int):
     from . import _cuda
 
@@ -117,18 +148,34 @@ def _launch(coarse, mult, bias, q, exclude, BS: int):
         raise TypeError("lane_min_scan: exclude must be int32")
     lib = _cuda.library("fused_scan")
     fn = lib.hnsw_lane_min_scan
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    dev = coarse.device
+    S = _split_count(
+        B, BS, C, torch.cuda.get_device_properties(dev).multi_processor_count)
     # the C entry point launches on the runtime's current device
-    with torch.cuda.device(coarse.device):
+    with torch.cuda.device(dev):
         qb = q.to(torch.bfloat16).contiguous()
-        vals = torch.empty((B, BS), dtype=torch.float32, device=coarse.device)
-        ids = torch.empty((B, BS), dtype=torch.int32, device=coarse.device)
+        # each split's partial result; with one split it is the result,
+        # else the second kernel merges them
+        pvals = torch.empty((S, B, BS), dtype=torch.float32, device=dev)
+        pids = torch.empty((S, B, BS), dtype=torch.int32, device=dev)
+        if S == 1:
+            vals, ids = pvals[0], pids[0]
+        else:
+            vals = torch.empty((B, BS), dtype=torch.float32, device=dev)
+            ids = torch.empty((B, BS), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(coarse.data_ptr(), mult.data_ptr(), bias.data_ptr(),
                  qb.data_ptr(), exclude.data_ptr(), vals.data_ptr(),
-                 ids.data_ptr(), C, D, B, BS, stream)
+                 ids.data_ptr(), pvals.data_ptr(), pids.data_ptr(), C, D, B,
+                 BS, S, stream)
+    if err < 0:
+        raise RuntimeError(
+            "lane_min_scan: no TMA tensor map for the corpus ("
+            + ("libcuda has no cuTensorMapEncodeTiled" if err == -1
+               else "cuTensorMapEncodeTiled refused the matrix") + ")")
     _cuda.check(err, "lane_min_scan")
     lane_min_scan.launches += 1
     return vals, ids
@@ -143,8 +190,9 @@ def lane_min_scan(coarse: torch.Tensor, mult: torch.Tensor,
     i32`` (-1 = none).  Returns ``(vals (B, BS) f32, ids (B, BS) i32)``:
     lane s holds the min key among columns with ``col % BS == s`` (ids -1 /
     vals >= 1e37 if the lane never saw a live column).  C needs no
-    alignment.  A CUDA corpus launches the kernel (and counts the launch in
-    ``lane_min_scan.launches``); a CPU corpus runs the plain version."""
+    alignment.  A CUDA corpus launches the kernel (and counts one launch
+    per call in ``lane_min_scan.launches``, merge pass included); a CPU
+    corpus runs the plain version."""
     if coarse.is_cuda:
         return _launch(coarse, mult, bias, q, exclude, BS)
     if coarse.device.type != "cpu":

@@ -115,3 +115,116 @@ def test_ref_lowest_column_wins_ties():
     np.testing.assert_array_equal(ids[0].numpy(), want)
     want[3] = 3 + BS                          # column 3 excluded for query 1
     np.testing.assert_array_equal(ids[1].numpy(), want)
+
+
+def _split_scan(coarse, mult, bias, q, excl, BS, bounds):
+    """lane_min_scan_ref over contiguous corpus splits (whole lane groups),
+    each with global column ids, as the kernel's blocks produce them."""
+    pv, pi = [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        local = torch.where((excl >= lo) & (excl < hi), excl - lo,
+                            torch.full_like(excl, -1))
+        v, i = TF.lane_min_scan_ref(coarse[lo:hi], mult[lo:hi], bias[lo:hi],
+                                    q, local, BS=BS)
+        pv.append(v)
+        pi.append(torch.where(i >= 0, i + lo, i))
+    return torch.stack(pv), torch.stack(pi)
+
+
+@pytest.mark.parametrize("splits", [2, 3, 5])
+@pytest.mark.parametrize("metric", ["sq_euclid", "cosine"])
+def test_merged_splits_equal_whole_scan_bit_for_bit(metric, splits):
+    """The merge pass of the kernel: partial scans of contiguous splits,
+    merged in split order with a strict '<', equal one scan of the whole
+    corpus exactly, with duplicate rows of one lane lying in different
+    splits (exact ties) and a ragged tail."""
+    C, D, B, BS = 2000, 24, 6, 128
+    vecs, q, active, excl = _case(metric, C, D, B, 11)
+    G = -(-C // BS)
+    for g in (1, 5, 9, 14):                    # lane 7 ties across groups
+        vecs[g * BS + 7] = vecs[7]
+        active[g * BS + 7] = True
+    active[7] = True
+    q[0] = q[1] = vecs[7]                      # the copies win lane 7
+    excl[1] = 7                                # query 1 loses the first copy
+    norms = torch.from_numpy(np.linalg.norm(vecs, axis=1) ** (
+        2 if metric == "sq_euclid" else 1)).float()
+    mult, bias = TF.rank_transform(metric, norms, torch.from_numpy(active))
+    coarse = torch.from_numpy(vecs).to(torch.bfloat16)
+    tq, te = torch.from_numpy(q), torch.from_numpy(excl)
+    wv, wi = TF.lane_min_scan_ref(coarse, mult, bias, tq, te, BS=BS)
+    bounds = [min(C, (s * G // splits) * BS) for s in range(splits)] + [C]
+    pv, pi = _split_scan(coarse, mult, bias, tq, te, BS, bounds)
+    mv, mi = TF.merge_lane_min_partials(pv, pi)
+    assert torch.equal(mv, wv)
+    assert torch.equal(mi, wi)
+    assert wi[0, 7].item() == 7 and wi[1, 7].item() == BS + 7
+
+
+@pytest.mark.parametrize("B,BS,C,want", [
+    (512, 1024, 1_007_616, 4),      # a full build wave: 32 tiles x 4 splits
+    (512, 1024, 20_000, 4),         # 20 lane groups: 5 a split
+    (512, 1024, 9_000, 2),          # 9 lane groups: no split under 4 groups
+    (300, 1024, 1_000_000, 5),      # 3 x 8 tiles
+    (7, 1024, 700, 1),              # one group: no split, no merge
+    (64, 64, 4_000_000, 132),       # one tile: every SM takes a split
+    (2048, 1024, 1_000_000, 1),     # more tiles than SMs
+])
+def test_split_count_follows_the_shape(B, BS, C, want):
+    S = TF._split_count(B, BS, C, 132)
+    assert S == want
+    assert 1 <= S <= max(1, -(-C // BS))
+
+
+@pytest.mark.parametrize("metric", ["sq_euclid", "cosine"])
+def test_ref_exclude_surfaces_the_runner_up(metric):
+    """Excluding the column that wins a lane must surface that lane's
+    runner-up, not a dead lane."""
+    C, D, B, BS = 1536, 20, 4, 128
+    vecs, q, active, _ = _case(metric, C, D, B, 6)
+    active[:] = True
+    norms = torch.from_numpy(np.linalg.norm(vecs, axis=1) ** (
+        2 if metric == "sq_euclid" else 1)).float()
+    mult, bias = TF.rank_transform(metric, norms, torch.from_numpy(active))
+    none = np.full(B, -1, np.int32)
+    _, wi0 = _oracle(vecs, q, mult.numpy(), bias.numpy(), none, BS)
+    lanes = np.array([3, 64, 127, 0])
+    excl = wi0[np.arange(B), lanes].astype(np.int32)   # each query's winner
+    tv, ti = TF.lane_min_scan_ref(torch.from_numpy(vecs), mult, bias,
+                                  torch.from_numpy(q),
+                                  torch.from_numpy(excl), BS=BS)
+    wv, wi = _oracle(vecs, q, mult.numpy(), bias.numpy(), excl, BS)
+    got = ti.numpy()[np.arange(B), lanes]
+    assert (got != excl).all() and (got >= 0).all()
+    assert (got % BS == lanes).all()
+    np.testing.assert_array_equal(got, wi[np.arange(B), lanes])
+    np.testing.assert_allclose(tv.numpy(), wv, rtol=1e-4, atol=1e-4)
+    assert (ti.numpy() == wi).mean() >= 0.999
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_matches_pallas_interpret_odd_depth_ragged_wave(dtype):
+    """D = 100 (no multiple of 16 or 64) and a wave of 13 queries."""
+    C, D, B, BS = 1024, 100, 13, 128
+    vecs, q, active, excl = _case("sq_euclid", C, D, B, 8)
+    excl[5] = 300
+    norms = np.array(jdst.norm_data("sq_euclid", jnp.asarray(vecs)))
+    jm, jb = JF.rank_transform("sq_euclid", jnp.asarray(norms),
+                               jnp.asarray(active))
+    tm, tb = TF.rank_transform("sq_euclid", torch.from_numpy(norms),
+                               torch.from_numpy(active))
+    jv, ji = JF.lane_min_scan(jnp.asarray(vecs, dtype), jm, jb,
+                              jnp.asarray(q), jnp.asarray(excl), BS=BS,
+                              interpret=True)
+    tv, ti = TF.lane_min_scan(torch.from_numpy(vecs).to(getattr(torch,
+                                                                dtype)),
+                              tm, tb, torch.from_numpy(q),
+                              torch.from_numpy(excl), BS=BS)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    live = jv < TF.DEAD
+    np.testing.assert_array_equal(tv.numpy() < TF.DEAD, live)
+    np.testing.assert_allclose(tv.numpy()[live], jv[live], rtol=1e-4,
+                               atol=1e-4)
+    assert (ti.numpy()[live] == ji[live]).mean() >= 0.999
+    assert (ti.numpy()[~live] == -1).all()
+    assert ti.numpy()[5, 300 % BS] != 300

@@ -58,6 +58,11 @@ def _scan_case(metric, C, D, B, dev, seed=7):
     (8192, 128, 100),
     (8192 * 3 + 77, 128, 512),      # ragged corpus, full build wave
     (700, 50, 7),                   # C < BS (dead lanes), D not a multiple of 32
+    (3000, 128, 64),                # fewer groups than one split: no merge
+    (20000, 128, 512),              # a short prefix: 4 splits of 5 groups
+    (40000, 100, 300),              # D = 100 (plain-load tiles), ragged wave
+    (30000, 72, 300),               # D = 72: a second chunk of 8 values by TMA
+    (9000, 1024, 130),              # D > 384: query chunks stream too
 ])
 def test_lane_min_scan_matches_ref_on_card(dev, metric, C, D, B):
     args = _scan_case(metric, C, D, B, dev)
@@ -66,11 +71,60 @@ def test_lane_min_scan_matches_ref_on_card(dev, metric, C, D, B):
     torch.cuda.synchronize()
     assert TF.lane_min_scan.launches == n0 + 1
     rv, ri = TF.lane_min_scan_ref(*args, BS=1024)
+    _assert_scan_close(kv, ki, rv, ri)
+
+
+def _assert_scan_close(kv, ki, rv, ri):
     live = rv < TF.DEAD
     assert torch.equal(kv < TF.DEAD, live)
     torch.testing.assert_close(kv[live], rv[live], rtol=1e-4, atol=1e-4)
     assert (ki[live] == ri[live]).float().mean().item() >= 0.999
     assert (ki[~live] == -1).all()
+
+
+@pytest.mark.parametrize("BS", [192, 1024])
+def test_lane_min_scan_duplicate_rows_keep_lowest_column_on_card(dev, BS):
+    """Five distinct rows repeated through the corpus: every lane ties
+    exactly across its groups and across the splits of the corpus walk
+    (4 splits at BS=1024, more at BS=192), and the ids must be exactly the
+    lowest columns, as the plain version gives them."""
+    C, D, B = 16 * 1024 + 300, 128, 100
+    rng = np.random.default_rng(5)
+    base = rng.random((5, D)).astype(np.float32)
+    x = torch.from_numpy(base[np.arange(C) % 5]).to(dev)
+    active = torch.from_numpy(rng.random(C) < 0.8).to(dev)
+    mult, bias = TF.rank_transform("sq_euclid",
+                                   tdst.norm_data("sq_euclid", x), active)
+    q = torch.from_numpy(rng.random((B, D)).astype(np.float32)).to(dev)
+    excl = torch.from_numpy(rng.integers(-1, C, B).astype(np.int32)).to(dev)
+    assert TF._split_count(B, BS, C, torch.cuda.get_device_properties(
+        dev).multi_processor_count) > 1
+    args = (x.to(torch.bfloat16), mult, bias, q, excl)
+    kv, ki = TF.lane_min_scan(*args, BS=BS)
+    rv, ri = TF.lane_min_scan_ref(*args, BS=BS)
+    _assert_scan_close(kv, ki, rv, ri)
+    assert torch.equal(ki, ri)
+
+
+@pytest.mark.parametrize("D", [128, 100])
+def test_lane_min_scan_exclude_surfaces_runner_up_on_card(dev, D):
+    """Each query excludes the column that wins one of its lanes: the
+    runner-up of that lane must come out, in whichever split it lies."""
+    C, B, BS = 24000, 300, 1024
+    coarse, mult, bias, q, _ = _scan_case("sq_euclid", C, D, B, dev)
+    none = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    _, wi = TF.lane_min_scan_ref(coarse, mult, bias, q, none, BS=BS)
+    rows = torch.arange(B, device=dev)
+    lanes = (rows * 37) % BS
+    excl = wi[rows, lanes].contiguous()
+    assert (excl >= 0).all()
+    kv, ki = TF.lane_min_scan(coarse, mult, bias, q, excl, BS=BS)
+    rv, ri = TF.lane_min_scan_ref(coarse, mult, bias, q, excl, BS=BS)
+    _assert_scan_close(kv, ki, rv, ri)
+    got = ki[rows, lanes]
+    assert (got != excl).all() and (got >= 0).all()
+    assert (got % BS == lanes).all()
+    assert (got == ri[rows, lanes]).float().mean().item() >= 0.99
 
 
 def test_lane_min_scan_checks_its_inputs_on_card(dev):
