@@ -20,14 +20,18 @@
    Kernel phase, block scores (K2): kernel against plain version at the
    block path's shapes (13,568 blocks of 128 x 128, 1,024 queries x 32
    probes; float32 tiles for the three metrics, bfloat16 tiles for
-   sq_euclid; -1 pads in the probe table and partly zero blocks) and at a
-   ragged shape (192-row blocks, 1,001 queries x 13 probes).  Fails above
+   sq_euclid; -1 pads in the probe table and partly zero blocks), at a
+   ragged shape (192-row blocks, 1,001 queries x 13 probes), with 192-row
+   blocks (a 96 KB tile) and with D=1,024 (a tile streamed in row chunks)
+   at the same query and probe counts.  Fails above
    1e-4 + 1e-4*|ref| for float32 and for bfloat16 tiles alike: both
    versions widen the same stored values and sum in float32, so only the
    order of the sums differs.  Times kernel, plain version and a gather +
    ``torch.bmm`` (the dots alone; printed as ``library_ms``, used nowhere
    in the package) with CUDA events, and computes each kernel's bound from
-   this run's inputs and the H100's published peaks.
+   this run's inputs and the H100's published peaks (K2's from the
+   distinct probed tiles).  At the main float32 and bfloat16 shapes K2 is
+   also timed at 32 pairs a work item instead of 16.
 4. Main path: ``hnswindex_torch.Index(128, "sq_euclid", device="cuda")``
    with ``set_collection_size`` and ``add`` on the bench's clustered corpus
    (seed 65537, M=16, efConstruction=100, max_wave_size=512); prints
@@ -42,7 +46,10 @@
    ``knn_query(k=10, n_probe=32)`` on the same 10,000 rows; recall@10 >=
    0.90 against the same ground truth; then 10,000 fresh rows are added
    (they must find themselves) and 10,000 ids removed (they must never come
-   back).  The block-scores launch count must be > 0.
+   back).  The block-scores launch count must be > 0.  Then K2 on the
+   path's own traffic: the first 1,024 rows routed to 32 blocks each, as
+   ``query_device`` routes them, against its plain version, timed beside
+   gather + ``bmm``, with its distinct tiles and its bound.
 7. Facade fallback: a second ``Index`` of the first 200,000 rows with
    ``pack_queries="on"`` and ``pack_max_bytes=0``; ``knn_query(k=10)``
    must be served from bf16 block tables through K2 with
@@ -74,6 +81,7 @@ NQ = 10_000                 # knn_query rows (the first NQ corpus rows)
 # launch, probes per query
 K2_NB, K2_BS, K2_B, K2_P = 13_568, 128, 1_024, 32
 K2_RAGGED = dict(NB=2_000, BS=192, B=1_001, P=13)
+K2_D1024_NB = 2_000         # blocks of the D=1024 comparison (1 GB of tiles)
 N_FALLBACK = 200_000        # rows of the facade-fallback index
 N_CHURN = 10_000            # rows added to / removed from the BlockIndex
 # published peaks of one H100 SXM: bf16 tensor cores, f32 CUDA cores, HBM
@@ -205,40 +213,44 @@ def kernel_phases() -> dict:
     return out
 
 
-def block_tiles(NB: int, BS_: int, dtype):
-    """A (NB, BS, D) tile table whose blocks are partly filled (zero rows
+def block_tiles(NB: int, BS_: int, dtype, d: int = D):
+    """A (NB, BS, d) tile table whose blocks are partly filled (zero rows
     past a random fill count, as in a laid-out index)."""
     import torch
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED + NB + BS_)
-    blk = torch.rand((NB, BS_, D), generator=g, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + NB + BS_ + d)
+    blk = torch.rand((NB, BS_, d), generator=g, device=dev)
     fill = torch.randint(BS_ // 2, BS_ + 1, (NB,), generator=g, device=dev)
     blk *= (torch.arange(BS_, device=dev)[None, :] < fill[:, None])[:, :, None]
     return blk.to(dtype)
 
 
-def block_phase(metric: str, blk, B: int, P: int, timed: bool) -> dict:
-    """K2 against its plain version on the card at one shape."""
+def k2_time_at_qt(fn, qt: int) -> float:
+    """K2's time with at most ``qt`` pairs a work item (``QT`` is read at
+    each call)."""
+    from hnswindex_torch.ops import block_scores as TBS
+    keep, TBS.QT = TBS.QT, qt
+    try:
+        return time_ms(fn, 10)
+    finally:
+        TBS.QT = keep
+
+
+def k2_compare(name: str, metric: str, blk, bids, q, timed: bool,
+               qt_alt: int = 0) -> dict:
+    """K2 against its plain version on the card on one input; when
+    ``timed``, also its time, the plain version's, a gather + ``bmm``'s
+    and the bound from this input's distinct probed tiles (with
+    ``qt_alt``, also K2's time at that many pairs a work item)."""
     import torch
     from hnswindex_torch.ops import block_scores as TBS
 
-    dev = blk.device
-    NB, BS_, _ = blk.shape
-    g = torch.Generator(device=dev).manual_seed(SEED + B + P)
-    q = torch.rand((B, D), generator=g, device=dev)
-    if metric == "ucosine":
-        q /= q.norm(dim=1, keepdim=True)
-    q[1] = 0.0                                   # a zero query
-    bids = torch.randint(0, NB, (B, P), generator=g, device=dev,
-                         dtype=torch.int32)
-    bids[torch.rand((B, P), generator=g, device=dev) < 0.05] = -1   # pads
-
+    NB, BS_, d = blk.shape
+    B, P = bids.shape
     got = TBS.block_scores(metric, blk, bids, q)
     torch.cuda.synchronize()
     ref = TBS.block_scores_ref(metric, blk, bids, q)
     torch.cuda.synchronize()
-    tiles = "bf16" if blk.dtype == torch.bfloat16 else "f32"
-    name = f"{metric}/{tiles} NB={NB} BS={BS_} B={B} P={P}"
     if got.shape != (B, P * BS_) or not bool(torch.isfinite(got).all()):
         fail(f"K2 {name}: wrong shape or non-finite distances")
     err = (got - ref).abs()
@@ -246,34 +258,60 @@ def block_phase(metric: str, blk, B: int, P: int, timed: bool) -> dict:
         fail(f"K2 {name}: max abs err {err.max().item()}")
     res = dict(name=name, max_abs_err=err.max().item())
     del got, ref, err
-    if timed:
-        idc = bids.long().clamp(0, NB - 1)
-        qc = q.to(blk.dtype)[:, :, None]
-        res["ms"] = time_ms(lambda: TBS.block_scores(metric, blk, bids, q),
-                            10)
-        res["plain_ms"] = time_ms(
-            lambda: TBS.block_scores_ref(metric, blk, bids, q), 3)
-        # yardstick only: one gather and one batched product give the dots
-        # (not the norms or the metric)
-        res["library_ms"] = time_ms(
-            lambda: torch.bmm(blk[idc].view(B, P * BS_, D), qc), 3)
-        # bound: each distinct probed tile read once, plus q, the probe
-        # table and the panel; two flops per tile element per probe
-        distinct = int(torch.unique(idc).numel())
-        nbytes = (distinct * BS_ * D * blk.element_size()
-                  + q.numel() * 4 + bids.numel() * 4 + B * P * BS_ * 4)
-        res.update(bound(2.0 * B * P * BS_ * D,
-                         PEAK_BF16 if tiles == "bf16" else PEAK_F32, nbytes))
-        res["distinct_tiles"] = distinct
-        print(f"kernel phase K2 {name}: max_abs_err={res['max_abs_err']:.3e}"
-              f" kernel {res['ms']:.3f} ms plain {res['plain_ms']:.3f} ms "
-              f"gather+bmm {res['library_ms']:.3f} ms bound "
-              f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {distinct} "
-              f"distinct tiles)", flush=True)
-    else:
+    if not timed:
         print(f"kernel phase K2 {name}: max_abs_err={res['max_abs_err']:.3e}",
               flush=True)
+        return res
+    idc = bids.long().clamp(0, NB - 1)
+    qc = q.to(blk.dtype)[:, :, None]
+    run = lambda: TBS.block_scores(metric, blk, bids, q)    # noqa: E731
+    res["ms"] = time_ms(run, 10)
+    res["plain_ms"] = time_ms(
+        lambda: TBS.block_scores_ref(metric, blk, bids, q), 3)
+    # yardstick only: one gather and one batched product give the dots
+    # (not the norms or the metric)
+    res["library_ms"] = time_ms(
+        lambda: torch.bmm(blk[idc].view(B, P * BS_, d), qc), 3)
+    # bound: each distinct probed tile read once, plus q, the probe table
+    # and the panel; two flops per tile element per probe
+    distinct = int(torch.unique(idc).numel())
+    nbytes = (distinct * BS_ * d * blk.element_size()
+              + q.numel() * 4 + bids.numel() * 4 + B * P * BS_ * 4)
+    res.update(bound(2.0 * B * P * BS_ * d,
+                     PEAK_BF16 if blk.dtype == torch.bfloat16 else PEAK_F32,
+                     nbytes))
+    res["distinct_tiles"] = distinct
+    line = (f"kernel phase K2 {name}: max_abs_err={res['max_abs_err']:.3e}"
+            f" kernel {res['ms']:.3f} ms plain {res['plain_ms']:.3f} ms "
+            f"gather+bmm {res['library_ms']:.3f} ms bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {distinct} "
+            f"distinct tiles of {NB})")
+    if qt_alt:
+        res[f"ms_qt{qt_alt}"] = k2_time_at_qt(run, qt_alt)
+        line += f"; at {qt_alt} pairs a work item {res[f'ms_qt{qt_alt}']:.3f} ms"
+    print(line, flush=True)
     return res
+
+
+def block_phase(metric: str, blk, B: int, P: int, timed: bool,
+                qt_alt: int = 0) -> dict:
+    """K2 against its plain version at one shape, on uniform random probes
+    with 5% routing pads and a zero query."""
+    import torch
+
+    dev = blk.device
+    NB, BS_, d = blk.shape
+    g = torch.Generator(device=dev).manual_seed(SEED + B + P)
+    q = torch.rand((B, d), generator=g, device=dev)
+    if metric == "ucosine":
+        q /= q.norm(dim=1, keepdim=True)
+    q[1] = 0.0                                   # a zero query
+    bids = torch.randint(0, NB, (B, P), generator=g, device=dev,
+                         dtype=torch.int32)
+    bids[torch.rand((B, P), generator=g, device=dev) < 0.05] = -1   # pads
+    tiles = "bf16" if blk.dtype == torch.bfloat16 else "f32"
+    name = f"{metric}/{tiles} NB={NB} BS={BS_} D={d} B={B} P={P}"
+    return k2_compare(name, metric, blk, bids, q, timed, qt_alt)
 
 
 def block_phases() -> dict:
@@ -281,18 +319,27 @@ def block_phases() -> dict:
     block path's shape (the one the kernels line reports)."""
     import torch
     blk = block_tiles(K2_NB, K2_BS, torch.float32)
-    out = {m: block_phase(m, blk, K2_B, K2_P, timed=True)
-           for m in ("sq_euclid", "cosine")}
+    out = dict(sq_euclid=block_phase("sq_euclid", blk, K2_B, K2_P,
+                                     timed=True, qt_alt=32))
+    out["cosine"] = block_phase("cosine", blk, K2_B, K2_P, timed=True)
     blk /= blk.norm(dim=2, keepdim=True).clamp(min=1e-30)
     out["ucosine"] = block_phase("ucosine", blk, K2_B, K2_P, timed=True)
     del blk
     out["bf16"] = block_phase(
         "sq_euclid", block_tiles(K2_NB, K2_BS, torch.bfloat16), K2_B, K2_P,
-        timed=True)
+        timed=True, qt_alt=32)
     r = K2_RAGGED
     out["ragged"] = block_phase(
         "sq_euclid", block_tiles(r["NB"], r["BS"], torch.float32), r["B"],
         r["P"], timed=False)
+    # a 96 KB tile (the same rows in 192-row blocks) and a tile streamed in
+    # row chunks (D=1024)
+    out["bs192"] = block_phase(
+        "sq_euclid", block_tiles(K2_NB * K2_BS // 192, 192, torch.float32),
+        K2_B, K2_P, timed=True)
+    out["d1024"] = block_phase(
+        "sq_euclid", block_tiles(K2_D1024_NB, K2_BS, torch.float32, 1024),
+        K2_B, K2_P, timed=True)
     torch.cuda.empty_cache()
     return out
 
@@ -313,6 +360,7 @@ def block_path(vecs: np.ndarray, gt: np.ndarray) -> dict:
     """BlockIndex at full width: build, query, add, remove."""
     import torch
     import hnswindex_torch
+    from hnswindex_torch.block import _route_exact
     from hnswindex_torch.ops import block_scores as TBS
 
     n = vecs.shape[0]
@@ -363,9 +411,18 @@ def block_path(vecs: np.ndarray, gt: np.ndarray) -> dict:
         fail(f"block path: only {self_found} of the added rows found")
     if launches <= 0:
         fail("the block path never launched the block-scores kernel")
+
+    # K2 on the block path's own traffic: the first K2_B corpus rows routed
+    # as query_device routes them (after the launch count was read)
+    qd = torch.as_tensor(vecs[:K2_B], device="cuda")
+    bids = _route_exact(bix.metric, bix._cents, bix._cent_norms, qd,
+                        min(K2_P, bix.n_blocks), bix._cent_valid)
+    real = k2_compare(f"real traffic sq_euclid/f32 NB={bix._blk_vecs.shape[0]}"
+                      f" BS={K2_BS} D={D} B={K2_B} P={K2_P}", "sq_euclid",
+                      bix._blk_vecs, bids, qd, timed=True, qt_alt=32)
     return dict(build_s=build_s, n_blocks=n_blocks, queries_per_s=qs,
                 recall_at_10=recall, add_s=add_s, remove_s=remove_s,
-                self_found=self_found, launches=launches)
+                self_found=self_found, launches=launches, k2_real=real)
 
 
 def fallback_path(vecs: np.ndarray) -> dict:

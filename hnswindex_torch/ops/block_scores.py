@@ -15,7 +15,10 @@ query's p-th probed block); the caller masks padding and takes the top-k.
   exactly 1 (padding rows of a partly filled block are zeros).
 
 ``block_scores`` launches the CUDA kernel in ``csrc/block_scores.cu`` for
-CUDA tensors and runs the plain ``block_scores_ref`` for CPU tensors.
+CUDA tensors and runs the plain ``block_scores_ref`` for CPU tensors.  The
+kernel groups the (query, probe) pairs by block on the device and reads
+each probed tile once for every query that probes it; the small functions
+below size its shared memory and its grid.
 """
 
 from __future__ import annotations
@@ -29,8 +32,16 @@ from . import distance as dst
 _METRIC_CODE = {"sq_euclid": 0, "cosine": 1, "ucosine": 2}
 #: float32 elements of gathered tiles the plain version holds at once
 _REF_ELEMS = 1 << 27
-#: shared memory the kernel may ask for without opting in to more
-_SMEM_MAX = 48 * 1024
+#: most (query, probe) pairs one work item of the kernel scores
+QT = 16
+#: bytes of shared memory for a staged tile (one chunk, or two that
+#: alternate); with it two or more scoring blocks reside on an SM (three
+#: at the block path's 64 KB float32 tiles)
+_TILE_BUDGET = 96 * 1024
+#: bytes of shared memory for a work item's float32 query rows
+_QUERY_BUDGET = 32 * 1024
+#: shared memory one block of the card may opt in to (H100)
+_SMEM_LIMIT = 232_448
 
 
 def _check(metric: str, blk_vecs: torch.Tensor, bids: torch.Tensor,
@@ -85,29 +96,73 @@ def block_scores_ref(metric: str, blk_vecs: torch.Tensor, bids: torch.Tensor,
     return out.reshape(B, P * BS)
 
 
+def _rows_per_chunk(BS: int, D: int, elem: int) -> int:
+    """Tile rows the kernel stages at once: the whole tile when it fits
+    ``_TILE_BUDGET``, else as many rows as two alternating buffers can hold
+    in it (at least one)."""
+    row = D * elem
+    if BS * row <= _TILE_BUDGET:
+        return BS
+    return max(1, min(BS, _TILE_BUDGET // (2 * row)))
+
+
+def _queries_per_item(D: int) -> int:
+    """Pairs a work item holds: ``QT``, fewer when their float32 query
+    rows would pass ``_QUERY_BUDGET`` (at least one)."""
+    return max(1, min(QT, _QUERY_BUDGET // (4 * (-(-D // 4) * 4))))
+
+
+def _max_work_items(NB: int, B: int, P: int, qt: int) -> int:
+    """Upper bound on the kernel's work items (one per ``qt`` pairs of a
+    block's segment): each of at most ``min(NB, B*P)`` probed blocks has at
+    most one item that its pairs do not fill, so the grid is launched at
+    this size without reading the real count back."""
+    n = B * P
+    return min(NB, n) + -(-n // qt)
+
+
+def _smem_bytes(BS: int, D: int, elem: int, rb: int, qt: int) -> int:
+    """Shared memory of one scoring block (``layout`` in the .cu): the tile
+    buffers (one, or two when the tile is chunked), two mbarriers, the
+    float32 query rows, their norms and pair ids, and the chunk's row
+    norms."""
+    buf = -(-rb * D * elem // 16) * 16
+    return ((1 if rb >= BS else 2) * buf + 16 + 4 * qt * (-(-D // 4) * 4 + 2)
+            + 4 * rb)
+
+
 def _launch(metric, blk_vecs, bids, q):
     from . import _cuda
 
     NB, BS, D = blk_vecs.shape
     B, P = bids.shape
-    if (-(-D // 4) * 4 + BS) * 4 > _SMEM_MAX:
-        raise ValueError(f"block_scores: D={D} and BS={BS} need more than "
-                         f"{_SMEM_MAX} bytes of shared memory")
-    if B * P >= 1 << 31:
+    elem = blk_vecs.element_size()
+    rb, qt = _rows_per_chunk(BS, D, elem), _queries_per_item(D)
+    max_items = _max_work_items(NB, B, P, qt)
+    if B * P >= 1 << 31 or max_items >= 1 << 31:
         raise ValueError("block_scores: B * P must stay below 2^31")
+    if _smem_bytes(BS, D, elem, rb, qt) > _SMEM_LIMIT:
+        raise ValueError(f"block_scores: D={D} needs more shared memory than "
+                         f"a block of the card has")
     lib = _cuda.library("block_scores")
     fn = lib.hnsw_block_scores
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    dev = blk_vecs.device
     # the C entry point launches on the runtime's current device
-    with torch.cuda.device(blk_vecs.device):
+    with torch.cuda.device(dev):
         qc = q.to(blk_vecs.dtype).contiguous()
-        out = torch.empty((B, P * BS), dtype=torch.float32,
-                          device=blk_vecs.device)
+        out = torch.empty((B, P * BS), dtype=torch.float32, device=dev)
+        counts = torch.zeros(NB + 1, dtype=torch.int32, device=dev)
+        offsets = torch.empty(NB + 1, dtype=torch.int32, device=dev)
+        order = torch.empty(B * P, dtype=torch.int32, device=dev)
+        items = torch.empty((max_items, 3), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(blk_vecs.data_ptr(), bids.data_ptr(), qc.data_ptr(),
-                 out.data_ptr(), NB, BS, D, B, P, _METRIC_CODE[metric],
+                 out.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+                 order.data_ptr(), items.data_ptr(), NB, BS, D, B, P, rb, qt,
+                 max_items, _METRIC_CODE[metric],
                  int(blk_vecs.dtype == torch.bfloat16), stream)
     _cuda.check(err, "block_scores")
     block_scores.launches += 1

@@ -157,3 +157,93 @@ def test_wrapper_checks_its_inputs(what, exc):
     with pytest.raises(exc):
         TBS.block_scores(metric, blk, bids, q)
     assert TBS.block_scores.launches == n0
+
+
+def _skewed(table, metric, shape, seed=2):
+    """``_case`` with a probe table that piles pairs onto few blocks."""
+    blk, bids, q = _case(metric, shape, seed)
+    B, P = bids.shape
+    if table == "one_block":                # every pair on one block
+        bids[:] = shape[0] // 2
+    elif table == "all_pads":               # every probe a routing pad
+        bids[:] = -1
+    elif table == "repeat_in_query":        # a block twice in one query
+        bids[:, 1] = bids[:, 0]
+        bids[B - 1, :] = bids[B - 1, 0]
+    return blk, bids, q
+
+
+@pytest.mark.parametrize("table", ["one_block", "all_pads", "repeat_in_query"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_skewed_probe_tables_match_pallas_and_oracle(metric, table):
+    """The probe tables that make one block's segment hold many (or all)
+    pairs in the kernel's grouping; the plain version defines the panel."""
+    blk, bids, q = _skewed(table, metric, SHAPES[1])
+    got = TBS.block_scores(metric, torch.from_numpy(blk),
+                           torch.from_numpy(bids), torch.from_numpy(q))
+    got = got.numpy()
+    assert np.abs(got - _oracle(metric, blk, bids, q)).max() <= 1e-4
+    ref = np.asarray(jax_block_scores(metric, jnp.asarray(blk),
+                                      jnp.asarray(bids), jnp.asarray(q),
+                                      interpret=True))
+    assert np.abs(got - ref).max() <= 1e-4
+    BS = SHAPES[1][1]
+    if table == "repeat_in_query":          # the same block, the same scores
+        np.testing.assert_array_equal(got[:, :BS], got[:, BS:2 * BS])
+
+
+# (BS, D, element bytes): the block path's tiles in float32 and bfloat16,
+# 192-row blocks, a row past the tile budget, rows that are not a multiple
+# of 16 bytes, and a row wider than half the budget
+SIZES = [(128, 128, 4), (128, 128, 2), (192, 128, 4), (128, 1024, 4),
+         (128, 100, 2), (64, 50, 4), (64, 12288, 4), (7, 3, 4)]
+
+
+@pytest.mark.parametrize("BS,D,elem", SIZES,
+                         ids=lambda v: str(v))
+def test_rows_per_chunk_fit_the_budget_and_cover_the_tile(BS, D, elem):
+    rb = TBS._rows_per_chunk(BS, D, elem)
+    assert 1 <= rb <= BS
+    if rb == BS:                            # the whole tile in one buffer
+        assert BS * D * elem <= TBS._TILE_BUDGET or BS == 1
+    else:                                   # two alternating chunk buffers
+        assert 2 * rb * D * elem <= TBS._TILE_BUDGET or rb == 1
+        assert 2 * (rb + 1) * D * elem > TBS._TILE_BUDGET
+    chunks = -(-BS // rb)
+    starts = [c * rb for c in range(chunks)]
+    rows = [min(rb, BS - s) for s in starts]
+    assert sum(rows) == BS and min(rows) >= 1
+    qt = TBS._queries_per_item(D)
+    assert 1 <= qt <= TBS.QT
+    assert qt * 4 * (-(-D // 4) * 4) <= TBS._QUERY_BUDGET or qt == 1
+    assert TBS._smem_bytes(BS, D, elem, rb, qt) <= TBS._SMEM_LIMIT
+
+
+def _true_items(bids, NB, qt):
+    counts = np.bincount(np.clip(bids.ravel(), 0, NB - 1), minlength=NB)
+    return int((-(-counts // qt)).sum())
+
+
+@pytest.mark.parametrize("qt", [1, 16, 32])
+@pytest.mark.parametrize("table", ["random", "one_block", "all_pads",
+                                   "clustered", "few_blocks_many_queries"])
+def test_max_work_items_bounds_every_probe_table(table, qt):
+    """The grid is launched at ``_max_work_items`` without reading the
+    real item count back, so the bound must hold for any probe table."""
+    rng = np.random.default_rng(qt)
+    for NB, B, P in [(13_568, 1_024, 32), (50, 300, 11), (5_000, 20, 4),
+                     (30, 1, 1), (3, 1_001, 13)]:
+        if table == "random":
+            bids = rng.integers(-1, NB, (B, P))
+        elif table == "one_block":
+            bids = np.full((B, P), NB // 2)
+        elif table == "all_pads":
+            bids = np.full((B, P), -1)
+        elif table == "clustered":          # a few hot blocks per query
+            hot = rng.integers(0, NB, 8)
+            bids = hot[rng.integers(0, 8, (B, P))]
+        else:                               # each block takes qt + 1 pairs
+            bids = np.arange(B * P).reshape(B, P) // (qt + 1) % NB
+        true = _true_items(bids, NB, qt)
+        bound = TBS._max_work_items(NB, B, P, qt)
+        assert true <= bound <= min(NB, B * P) + B * P // qt + 1

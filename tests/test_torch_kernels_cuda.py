@@ -9,7 +9,9 @@ installed; there the suite's conftest (which configures jax) is left out:
 
 Bars: block scores (K2) against its plain version at rtol=atol=1e-4 for
 float32 and bfloat16 tiles alike (both widen the same stored values and sum
-in float32; only the order of the sums differs); a 3,000-row BlockIndex on
+in float32; only the order of the sums differs), also at skewed probe
+tables and tiles past the shared-memory budget, and bit-identical panels
+from repeated calls; a 3,000-row BlockIndex on
 the card scores through K2 and is exact when every block is probed.
 Lane-min scan vals at rtol=atol=1e-4, ids equal on >= 0.999 of live
 lanes, dead lanes -1; exact_knn2 on the card against the same call on the
@@ -201,7 +203,8 @@ def _blocks_case(metric, NB, BS, D, B, P, dtype, dev, seed=11):
         blk /= np.linalg.norm(blk, axis=-1, keepdims=True)
         q /= np.linalg.norm(q, axis=-1, keepdims=True)
     blk[:, BS - BS // 4:] = 0.0                 # partly filled blocks
-    q[1] = 0.0                                  # a zero query
+    if B > 1:
+        q[1] = 0.0                              # a zero query
     bids = rng.integers(0, NB, (B, P)).astype(np.int32)
     bids[rng.random((B, P)) < 0.1] = -1         # routing pads
     return (torch.from_numpy(blk).to(dev).to(dtype),
@@ -240,10 +243,66 @@ def test_block_scores_checks_its_inputs_on_card(dev):
         TBS.block_scores("sq_euclid", blk[:, :, ::2], bids, q[:, ::2])
     with pytest.raises(TypeError):
         TBS.block_scores("sq_euclid", blk, bids.long(), q)
-    wide = torch.zeros((2, 64, 12288), device=dev)       # > 48 KB of smem
-    with pytest.raises(ValueError, match="shared memory"):
-        TBS.block_scores("sq_euclid", wide, bids[:, :1] * 0,
-                         torch.zeros((4, 12288), device=dev))
+    # a row wider than any shared-memory budget: streamed a row at a time
+    wide, wbids, wq = _blocks_case("sq_euclid", 2, 64, 12288, 4, 1,
+                                   torch.float32, dev)
+    torch.testing.assert_close(
+        TBS.block_scores("sq_euclid", wide, wbids, wq),
+        TBS.block_scores_ref("sq_euclid", wide, wbids, wq),
+        rtol=1e-4, atol=1e-4)
+
+
+def _skewed_bids(table, NB, B, P, rng):
+    if table == "one_block":            # a single segment of B*P pairs
+        return np.full((B, P), NB // 2, np.int32)
+    if table == "all_pads":             # every probe a routing pad
+        return np.full((B, P), -1, np.int32)
+    bids = rng.integers(0, NB, (B, P)).astype(np.int32)
+    if table == "repeat_in_query":      # a query probes one block twice
+        bids[:, 1] = bids[:, 0]
+        bids[3, :] = bids[3, 0]
+    return bids
+
+
+@pytest.mark.parametrize("metric", ["sq_euclid", "cosine"])
+@pytest.mark.parametrize("name,NB,BS,D,B,P,dtype,table", [
+    ("one_block", 40, 128, 128, 300, 11, torch.float32, "one_block"),
+    ("all_pads", 40, 128, 128, 100, 9, torch.float32, "all_pads"),
+    ("repeat_in_query", 50, 128, 128, 70, 6, torch.bfloat16,
+     "repeat_in_query"),
+    ("sparse_probes", 5_000, 128, 128, 20, 4, torch.float32, "random"),
+    ("bs192_96KB", 300, 192, 128, 200, 8, torch.float32, "random"),
+    ("d1024_chunked", 120, 128, 1024, 60, 7, torch.float32, "random"),
+    ("d100_bf16_plain_loads", 150, 128, 100, 90, 6, torch.bfloat16,
+     "random"),
+    ("one_pair", 30, 128, 128, 1, 1, torch.float32, "random"),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_block_scores_grouping_edges_on_card(dev, metric, name, NB, BS, D, B,
+                                             P, dtype, table):
+    """Probe tables and shapes that stress the kernel's grouping of pairs
+    by block (segments split into many work items, all pads on block 0, a
+    block twice in one query, most blocks unprobed, one pair) and its
+    staging (a 96 KB tile, a tile streamed in row chunks, rows that are
+    not a multiple of 16 bytes)."""
+    blk, _, q = _blocks_case(metric, NB, BS, D, B, P, dtype, dev)
+    bids = torch.from_numpy(_skewed_bids(
+        table, NB, B, P, np.random.default_rng(3))).to(dev)
+    got = TBS.block_scores(metric, blk, bids, q)
+    torch.cuda.synchronize()
+    want = TBS.block_scores_ref(metric, blk, bids, q)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_block_scores_repeat_calls_bit_identical_on_card(dev, dtype):
+    """The order of pairs inside a block's segment comes from atomics and
+    changes between calls; the panel must not."""
+    blk, bids, q = _blocks_case("cosine", 30, 128, 128, 500, 16, dtype, dev)
+    bids[:, :4] = 7                             # one hot block, many items
+    first = TBS.block_scores("cosine", blk, bids, q)
+    for _ in range(3):
+        assert torch.equal(TBS.block_scores("cosine", blk, bids, q), first)
 
 
 def test_block_index_on_card_runs_the_kernel(dev):
