@@ -40,6 +40,21 @@
 5. Queries: ``knn_query(k=10)`` on the first 10,000 corpus rows; prints
    q/s and checks recall@10 >= 0.90 on 1,000 of them against an exact f32
    brute force on the card.
+   The unpacked engine on the same index: layer 0 without the pack
+   (``pack_queries="off"``, ``min_nn=64``: ef 64 at ``query_expand=4``),
+   recall@10 >= 0.87; ``knn_query(layer=1)`` on 1,000 rows (ids of level
+   >= 1, distances ascending and equal to the direct formula, recall
+   against the exact top-10 over the level >= 1 rows printed);
+   ``knn_query(exact=True)`` on the 10,000 rows, recall@10 >= 0.99, with
+   the lane-min kernel's launches on that path counted (> 0) and the
+   kernel held against its plain version and timed on that path's own
+   inputs (B=1,024, the whole capacity, 4,096 lanes); 100 queries at
+   k=300 (the panel branch: no launch), recall@300 >= 0.999 against the
+   exact top-300 on the card; ``range_query`` on 1,000 rows at the median
+   exact 10th-neighbour distance (distances <= radius, ascending, no
+   duplicate ids; recall of the in-radius sets printed); and
+   ``multi_layer_knn_query`` on 8 rows (a list by layer, ids of level >=
+   the layer).
 
 6. Block path: ``hnswindex_torch.BlockIndex(128, "sq_euclid",
    block_size=128, device="cuda")`` built on the same corpus;
@@ -50,7 +65,13 @@
    path's own traffic: the first 1,024 rows routed to 32 blocks each, as
    ``query_device`` routes them, against its plain version, timed beside
    gather + ``bmm``, with its distinct tiles and its bound.
-7. Facade fallback: a second ``Index`` of the first 200,000 rows with
+7. Beam-path build: an ``Index`` of the first 200,000 rows with
+   ``exact_build_threshold=20,000`` (the default is 2^24), so every wave
+   past 20,000 built rows takes the beam path; prints inserts/s, the waves
+   on each path and the phase split; packed ``knn_query(k=10)`` on 10,000
+   rows must reach recall@10 >= 0.90 against the exact top-10 within those
+   rows; the unpacked ef=64 recall is printed.
+8. Facade fallback: a second ``Index`` of the first 200,000 rows with
    ``pack_queries="on"`` and ``pack_max_bytes=0``; ``knn_query(k=10)``
    must be served from bf16 block tables through K2 with
    ``n_probe = max(8, NB // 1024)``; recall@10 >= 0.90.
@@ -84,6 +105,9 @@ K2_RAGGED = dict(NB=2_000, BS=192, B=1_001, P=13)
 K2_D1024_NB = 2_000         # blocks of the D=1024 comparison (1 GB of tiles)
 N_FALLBACK = 200_000        # rows of the facade-fallback index
 N_CHURN = 10_000            # rows added to / removed from the BlockIndex
+N_BEAM = 200_000            # rows of the beam-path build
+BEAM_THRESHOLD = 20_000     # its exact_build_threshold (default 2^24)
+NQ_SMALL = 1_000            # queries of the layer-1, range and k=300 phases
 # published peaks of one H100 SXM: bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -345,7 +369,9 @@ def block_phases() -> dict:
 
 
 def recall_at_10(ids, gt) -> float:
-    return float(np.mean([len(set(a) & set(b)) / 10.0
+    """Recall of each row of ``ids`` against the same row of ``gt`` (at
+    gt's width: 10 unless the caller asks for more)."""
+    return float(np.mean([len(set(a) & set(b)) / len(b)
                           for a, b in zip(ids, gt)]))
 
 
@@ -468,15 +494,263 @@ def fallback_path(vecs: np.ndarray) -> dict:
 
 
 def exact_top10(xd, q: np.ndarray):
-    """Exact f32 top-10 of each query over the corpus on the card."""
+    """Exact f32 top-10 ids of each query over the corpus on the card."""
+    return exact_topk(xd, q, 10)[1]
+
+
+def exact_topk(xd, q: np.ndarray, k: int, allowed=None):
+    """Exact f32 top-k (dists, ids) of each query over the allowed rows of
+    the corpus ``xd`` on the card."""
     import torch
     xn = (xd * xd).sum(1)
-    out = []
+    ds, ids = [], []
     for i in range(0, q.shape[0], 250):
         qd = torch.as_tensor(q[i:i + 250], device=xd.device)
         d = (qd * qd).sum(1)[:, None] + xn[None] - 2.0 * (qd @ xd.T)
-        out.append(torch.topk(d, 10, dim=1, largest=False).indices.cpu())
-    return torch.cat(out).numpy()
+        if allowed is not None:
+            d = torch.where(allowed[None], d, float("inf"))
+        v, j = torch.topk(d, k, dim=1, largest=False)
+        ds.append(v.cpu())
+        ids.append(j.cpu())
+    return torch.cat(ds).numpy(), torch.cat(ids).numpy()
+
+
+def timed_query(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def unpacked_phase(index, vecs, gt) -> dict:
+    """Layer 0 without the pack: ef 64 (min_nn=64) at query_expand=4, the
+    bench's graph(ef=64) setting, through knn_search."""
+    p = index._params
+    keep = (p.pack_queries, p.min_nn)
+    p.pack_queries, p.min_nn = "off", 64
+    try:
+        _, first_s = timed_query(lambda: index.knn_query(vecs[:NQ], 10))
+        (qi, qd), s = timed_query(lambda: index.knn_query(vecs[:NQ], 10))
+        # the graph search alone (ids back on the host), without the
+        # float64 refine of its 64 candidates a query
+        _, search_s = timed_query(
+            lambda: index._impl._search_ids(vecs[:NQ], 64, 0))
+    finally:
+        p.pack_queries, p.min_nn = keep
+    check_answers("unpacked layer 0", qi, qd, NQ, vecs.shape[0])
+    recall = recall_at_10(qi[:1000], gt)
+    print(f"unpacked layer 0: {NQ} x k=10 ef=64 first call {first_s:.2f} s; "
+          f"steady {NQ / s:.1f} q/s ({s:.3f} s, of which the search "
+          f"{search_s:.3f} s); recall@10 {recall:.4f}", flush=True)
+    if recall < 0.87:
+        fail(f"unpacked layer-0 recall@10 {recall} < 0.87")
+    return dict(first_s=first_s, queries_per_s=NQ / s, seconds=s,
+                search_s=search_s, recall_at_10=recall)
+
+
+def layer1_phase(index, vecs, xd) -> dict:
+    """knn_query at layer 1: every id has level >= 1, distances ascending
+    and equal to the direct formula; recall against the exact top-10 over
+    the level >= 1 rows, on the card."""
+    impl = index._impl
+    q = vecs[:NQ_SMALL]
+    (qi, qd), s = timed_query(lambda: index.knn_query(q, 10, layer=1))
+    lvl = impl._state.level.cpu().numpy()
+    if (qi < 0).any() or (lvl[qi] < 1).any():
+        fail("layer 1: an id of level 0 (or padding) came back")
+    direct = ((vecs[qi].astype(np.float64)
+               - q[:, None, :].astype(np.float64)) ** 2).sum(-1)
+    if (np.diff(qd, axis=1) < 0).any() or \
+            not np.allclose(qd, direct, rtol=1e-5, atol=1e-5):
+        fail("layer 1: distances not ascending or not the direct formula")
+    allowed = impl._state.level[:vecs.shape[0]] >= 1
+    _, gt1 = exact_topk(xd, q, 10, allowed)
+    recall = recall_at_10(qi, gt1)
+    n1 = int(allowed.sum())
+    print(f"layer 1: {NQ_SMALL} x k=10 over {n1} rows of level >= 1, "
+          f"{NQ_SMALL / s:.1f} q/s; recall@10 {recall:.4f}", flush=True)
+    return dict(rows=n1, queries_per_s=NQ_SMALL / s, recall_at_10=recall)
+
+
+def exact_phase(index, vecs, gt, xd) -> dict:
+    """knn_query(exact=True): k=10 through the lane-min kernel (counted),
+    then K1 held against its plain version on this path's own inputs and
+    timed; k=300 through the panel branch (no launch)."""
+    import torch
+    from hnswindex_torch.index import EXACT_LANES
+    from hnswindex_torch.ops import bruteforce as BF
+    from hnswindex_torch.ops import fused_scan as FS
+
+    FS.lane_min_scan.launches = 0
+    (qi, qd), s = timed_query(
+        lambda: index.knn_query(vecs[:NQ], 10, exact=True))
+    launches = FS.lane_min_scan.launches
+    check_answers("exact", qi, qd, NQ, vecs.shape[0])
+    recall = recall_at_10(qi[:1000], gt)
+    print(f"exact: {NQ} x k=10 {NQ / s:.1f} q/s; lane_min_scan launches "
+          f"{launches}; recall@10 {recall:.4f}", flush=True)
+    if launches <= 0:
+        fail("the exact query never launched the lane-min kernel")
+    if recall < 0.99:
+        fail(f"exact recall@10 {recall} < 0.99")
+
+    # the same 1,000 queries at the reference's 1,024 lanes, for the record
+    # (after the count was read)
+    st = index._impl._state
+    _, ids1024 = BF.exact_knn2("sq_euclid", st.vectors, st.coarse_table,
+                               st.norms, st.active,
+                               torch.as_tensor(vecs[:1000], device="cuda"),
+                               10, lanes=BF.FUSED_BS)
+    recall1024 = recall_at_10(ids1024.cpu().numpy(), gt)
+    print(f"exact: recall@10 of the same scan at {BF.FUSED_BS} lanes "
+          f"{recall1024:.4f}, at {EXACT_LANES} lanes {recall:.4f}",
+          flush=True)
+
+    mult, bias = FS.rank_transform("sq_euclid", st.norms, st.active)
+    q = torch.as_tensor(vecs[:1024], device="cuda")
+    excl = torch.full((1024,), -1, dtype=torch.int32, device="cuda")
+    ct = st.coarse_table
+    kv, ki = FS.lane_min_scan(ct, mult, bias, q, excl, BS=EXACT_LANES)
+    rv, ri = FS.lane_min_scan_ref(ct, mult, bias, q, excl, BS=EXACT_LANES)
+    live = rv < FS.DEAD
+    err = (kv[live] - rv[live]).abs()
+    agree = (ki[live] == ri[live]).float().mean().item()
+    if not torch.equal(kv < FS.DEAD, live) or agree < 0.999 or \
+            bool((err > 1e-4 + 1e-4 * rv[live].abs()).any()):
+        fail(f"K1 at the exact query's shape: max abs err "
+             f"{err.max().item()}, id agreement {agree}")
+    ms = time_ms(lambda: FS.lane_min_scan(ct, mult, bias, q, excl,
+                                          BS=EXACT_LANES), 10)
+    plain_ms = time_ms(lambda: FS.lane_min_scan_ref(ct, mult, bias, q, excl,
+                                                    BS=EXACT_LANES), 3)
+    C = ct.shape[0]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (ct, mult, bias, q, excl, kv, ki))
+    k1 = dict(C=C, B=1024, BS=EXACT_LANES, max_abs_err=err.max().item(),
+              id_agree=agree,
+              ms=ms, plain_ms=plain_ms, library_ms=None,
+              **bound(2.0 * 1024 * C * D, PEAK_BF16, nbytes))
+    print(f"kernel phase K1 exact-query shape C={C} B=1024 D={D} "
+          f"BS={EXACT_LANES}: "
+          f"max_abs_err={k1['max_abs_err']:.3e} id_agree={agree:.6f} kernel "
+          f"{ms:.3f} ms ({ms / 1024 * 1e3:.2f} us a query) plain "
+          f"{plain_ms:.3f} ms bound {k1['bound_ms']:.4f} ms "
+          f"({k1['bound_by']})", flush=True)
+
+    n0 = FS.lane_min_scan.launches
+    q300 = vecs[:100]
+    (pi, pd), s300 = timed_query(
+        lambda: index.knn_query(q300, 300, exact=True))
+    if FS.lane_min_scan.launches != n0:
+        fail("k=300 (the panel branch) launched the lane-min kernel")
+    if (pi < 0).any() or (np.diff(pd, axis=1) < 0).any():
+        fail("exact k=300: padding or distances not ascending")
+    _, gt300 = exact_topk(xd, q300, 300)
+    recall300 = recall_at_10(pi, gt300)
+    print(f"exact k=300 (panel branch): 100 queries {100 / s300:.1f} q/s; "
+          f"recall@300 {recall300:.5f}", flush=True)
+    if recall300 < 0.999:
+        fail(f"exact recall@300 {recall300} < 0.999")
+    return dict(queries_per_s=NQ / s, recall_at_10=recall, launches=launches,
+                recall_at_10_1024_lanes=recall1024, k1_exact_shape=k1,
+                k300_queries_per_s=100 / s300, recall_at_300=recall300)
+
+
+def range_phase(index, vecs, xd) -> dict:
+    """range_query at the median exact 10th-neighbour distance: distances
+    <= radius and ascending, no duplicate ids; recall of the in-radius
+    sets against an exact in-radius scan on the card."""
+    import torch
+    q = vecs[:NQ_SMALL]
+    d10, _ = exact_topk(xd, q, 10)
+    radius = float(np.median(d10[:, 9]))
+    (ri, rd), s = timed_query(lambda: index.range_query(q, radius))
+    if len(ri) != NQ_SMALL:
+        fail("range_query returned the wrong number of rows")
+    xn = (xd * xd).sum(1)
+    hit = tot = 0
+    for r in range(NQ_SMALL):
+        if (rd[r] > radius).any() or (np.diff(rd[r]) < 0).any() or \
+                len(set(ri[r].tolist())) != ri[r].size:
+            fail(f"range_query row {r}: distance past the radius, not "
+                 "ascending, or a duplicate id")
+        qd = torch.as_tensor(q[r], device="cuda")
+        d = (qd * qd).sum() + xn - 2.0 * (xd @ qd)
+        want = set(torch.nonzero(d <= radius).flatten().cpu().tolist())
+        hit += len(want & set(ri[r].tolist()))
+        tot += len(want)
+    recall = hit / max(1, tot)
+    sizes = [x.size for x in ri]
+    print(f"range: {NQ_SMALL} queries at radius {radius:.5f} (median exact "
+          f"10th-neighbour distance), {NQ_SMALL / s:.1f} q/s; result sizes "
+          f"mean {np.mean(sizes):.1f} max {max(sizes)}; recall of the "
+          f"in-radius sets {recall:.4f}", flush=True)
+    return dict(radius=radius, queries_per_s=NQ_SMALL / s,
+                mean_size=float(np.mean(sizes)), max_size=int(max(sizes)),
+                recall=recall)
+
+
+def multi_layer_phase(index, vecs) -> dict:
+    """multi_layer_knn_query on 8 single queries: a list indexed by layer
+    whose ids at layer l have level >= l."""
+    lvl = index._impl._state.level.cpu().numpy()
+    t0 = time.perf_counter()
+    tops = []
+    for r in range(8):
+        res = index.multi_layer_knn_query(vecs[r], 10)
+        if not res or any(x is None for x in res):
+            fail("multi_layer_knn_query: empty or a layer without a result")
+        for layer, (ids, ds) in enumerate(res):
+            if (lvl[ids] < layer).any() or (np.diff(ds) < 0).any():
+                fail(f"multi_layer_knn_query: layer {layer} returned a "
+                     "lower-level id or unsorted distances")
+        tops.append(len(res) - 1)
+    s = time.perf_counter() - t0
+    print(f"multi-layer: 8 queries, top layers {tops}, {8 / s:.1f} q/s",
+          flush=True)
+    return dict(top_layers=tops, queries_per_s=8 / s)
+
+
+def beam_build(vecs: np.ndarray) -> dict:
+    """A 200,000-row build whose waves past 20,000 rows take the beam
+    path; packed and unpacked k=10 recall against the exact top-10 within
+    those rows."""
+    import torch
+    import hnswindex_torch
+
+    sub = vecs[:N_BEAM]
+    index = hnswindex_torch.Index(D, "sq_euclid", device="cuda")
+    index.set_collection_size(N_BEAM)
+    index._params.exact_build_threshold = BEAM_THRESHOLD
+    _, build_s = timed_query(lambda: index.add(sub))
+    impl = index._impl
+    waves = dict(impl.wave_counts)
+    phases = impl.timer.seconds()
+    if index.count != N_BEAM or waves["beam"] <= 0:
+        fail("beam-path build: rows missing or no wave took the beam path")
+    split = " ".join(f"{k}={v:.2f}s" for k, v in sorted(phases.items()))
+    print(f"beam-path build: {N_BEAM} rows in {build_s:.2f} s = "
+          f"{N_BEAM / build_s:.1f} inserts/s; waves exact {waves['exact']} "
+          f"beam {waves['beam']}; phases {split}", flush=True)
+    xd = torch.as_tensor(sub, device="cuda")
+    _, gt = exact_topk(xd, sub[:1000], 10)
+    (qi, qd), s = timed_query(lambda: index.knn_query(sub[:NQ], 10))
+    check_answers("beam-path build", qi, qd, NQ, N_BEAM)
+    recall = recall_at_10(qi[:1000], gt)
+    p = index._params
+    p.pack_queries, p.min_nn = "off", 64
+    (ui, _), us = timed_query(lambda: index.knn_query(sub[:1000], 10))
+    urecall = recall_at_10(ui, gt)
+    print(f"beam-path build queries: packed {NQ} x k=10 {NQ / s:.1f} q/s "
+          f"(with pack build) recall@10 {recall:.4f}; unpacked ef=64 "
+          f"recall@10 {urecall:.4f}", flush=True)
+    if recall < 0.90:
+        fail(f"beam-path build recall@10 {recall} < 0.90")
+    return dict(build_s=build_s, inserts_per_s=N_BEAM / build_s,
+                waves=waves, phases_s=phases, recall_at_10=recall,
+                unpacked_recall_at_10=urecall)
 
 
 def main() -> int:
@@ -560,8 +834,18 @@ def main() -> int:
     if recall < 0.90:
         fail(f"recall@10 {recall} < 0.90")
 
+    # the unpacked engine on the same index: layer 0 without the pack,
+    # layer 1, exact, range and multi-layer queries
+    graph = dict(unpacked=unpacked_phase(index, vecs, gt),
+                 layer1=layer1_phase(index, vecs, xd),
+                 exact=exact_phase(index, vecs, gt, xd),
+                 range=range_phase(index, vecs, xd),
+                 multi_layer=multi_layer_phase(index, vecs))
+
     # the main index (with its ~9 GB pack) makes room for the block paths
     del index, xd
+    torch.cuda.empty_cache()
+    beam = beam_build(vecs)
     torch.cuda.empty_cache()
     blockp = block_path(vecs, gt)
     fallb = fallback_path(vecs)
@@ -569,8 +853,8 @@ def main() -> int:
     print(json.dumps({"summary": {
         "n": n, "build_s": build_s, "build_inserts_per_s": n / build_s,
         "phases_s": phases, "queries_per_s": qs, "recall_at_10": recall,
-        "lane_min_scan_phases": k1, "block_path": blockp,
-        "fallback": fallb,
+        "lane_min_scan_phases": k1, "graph_path": graph,
+        "beam_build": beam, "block_path": blockp, "fallback": fallb,
         "block_scores_phases": k2}}), flush=True)
     print(card, flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -580,7 +864,9 @@ def main() -> int:
         {"name": "lane_min_scan", "route": "cuda",
          "source": "hnswindex_torch/csrc/fused_scan.cu",
          "replaces": "hnswindex_tpu/ops/fused_scan.py:85",
-         "launches": launches, **{k: k_full[k] for k in keys}},
+         "launches": launches,
+         "launches_exact": graph["exact"]["launches"],
+         **{k: k_full[k] for k in keys}},
         {"name": "block_scores", "route": "cuda",
          "source": "hnswindex_torch/csrc/block_scores.cu",
          "replaces": "hnswindex_tpu/ops/pallas_block.py:84",

@@ -424,8 +424,8 @@ class BlockIndex:
         if router == "hnsw":
             raise NotImplementedError(
                 "BlockIndex(router='hnsw') is not ported to hnswindex_torch "
-                "yet: the centroid graph needs the unpacked knn_search "
-                "(ROADMAP queue 1 item 8) and remove (item 10)")
+                "yet: the centroid graph's upkeep needs remove (ROADMAP "
+                "queue 1 item 12 remainder, after item 10)")
         self.device = torch.device(device)
         _check_full_f32(self.device)
         self.dim = int(dim)

@@ -1,17 +1,23 @@
-"""Wave-batched graph construction, exact-candidate path.
+"""Wave-batched graph construction.
 
 Counterpart of ``hnswindex_tpu/core/construct.py`` (the reference's insert
 path, GraphConnector.cs:24-262).  Inserts are batched into *waves*: every
 member connects against the frozen pre-wave graph, edges are selected with
 the batched heuristic, and the wave's mutations are applied as row
-scatters.  Per wave:
+scatters.  A wave takes one of two paths, as the facade chooses:
 
-1. ``scatter_wave`` stores the members' vectors, levels and active bits;
-2. ``upper_connect_exact`` connects members with level >= 1 at layers
-   top..1 from exact candidates over the upper-node panel;
-3. ``base_connect_exact`` connects every member at layer 0 from the exact
-   efConstruction nearest neighbours of a corpus scan, then promotes the
-   entry point (GraphConnector.cs:36-41).
+* exact (while the corpus is at most ``exact_build_threshold`` rows):
+  ``scatter_wave`` stores the members; ``upper_connect_exact`` connects
+  members with level >= 1 at layers top..1 from exact candidates over the
+  upper-node panel; ``base_connect_exact`` connects every member at layer 0
+  from the exact efConstruction nearest neighbours of a corpus scan, then
+  promotes the entry point (GraphConnector.cs:36-41).
+* beam (past the threshold): ``scatter_wave``; ``upper_connect`` descends
+  greedily to each upper member's top connect layer and connects it at
+  layers L-1..1 by beam search (``_connect_at_layer``), chaining the
+  closest accepted neighbour down; ``base_connect`` connects every member
+  at layer 0 by beam search from its chained entry (upper members) or from
+  a greedy descent (the rest), then promotes the entry point.
 
 Connecting is ``_apply_connections``: heuristic prune, forward-row write,
 then ``_add_reverse`` appends the back edges and re-prunes rows that
@@ -22,9 +28,8 @@ exactly its members and carries no lane padding.  The tables are updated in
 place.  Masked row writes select their rows with a boolean mask (which
 synchronises with the device) instead of the reference's dropped writes to
 slot C.  Not ported: the device-side wave cursor and grouping
-(``wave_head``, ``upper_compact``, ``insert_wave_fused``), which served
-relay latency and XLA compiles, and the beam path (``insert_wave``,
-``upper_connect``, ``base_connect``), which waits for core/search.py.
+(``wave_head``, ``upper_compact``, ``insert_wave_fused``,
+``insert_wave_beam_fused``), which served relay latency and XLA compiles.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..ops import distance as dst
 from ..ops.bruteforce import exact_knn, exact_knn2
 from . import heuristic
 from .graph import GraphConfig, GraphState, nbr_slice, write_rows
+from .search import beam_search, greedy_descent
 
 _INF = float("inf")
 _PRUNE_CHUNK = 1024
@@ -210,6 +216,25 @@ def _apply_connections(cfg: GraphConfig, state: GraphState, layer: int, ids,
     return sel
 
 
+def _connect_at_layer(cfg: GraphConfig, state: GraphState, layer: int, ids,
+                      vecs, qn, entry, conn, max_deg: int, timer=None):
+    """One layer of the beam-path insert (ConnectAtLayer,
+    GraphConnector.cs:187-217): a beam of width efConstruction from
+    ``entry``, then ``_apply_connections``.  Returns the next layer's
+    entries: the closest accepted neighbour where one was accepted
+    (GraphConnector.cs:216), else the old entry."""
+    efc = cfg.ef_construction
+    p = cfg.build_expand
+    max_iters = (cfg.search_iter_factor * efc) // p + 16
+    with _phase(timer, "beam"):
+        cd, ci = beam_search(cfg, state, vecs, qn, entry, conn, layer, efc,
+                             max_iters, expand=p)
+    sel = _apply_connections(cfg, state, layer, ids, cd, ci, conn, max_deg,
+                             timer)
+    nxt = sel[:, 0]
+    return torch.where(conn & (nxt >= 0), nxt, entry)
+
+
 def _old_top(state: GraphState):
     """(has_graph, top level of the entry point or -1) as 0-d tensors."""
     C = state.capacity
@@ -314,3 +339,74 @@ def base_connect_exact(cfg: GraphConfig, state: GraphState, ids, lvls,
     new_ep = torch.where(lvls[best_i] > old_top, ids[best_i], state.ep.long())
     state.ep.copy_(new_ep)
     state.count += ids.shape[0]
+
+
+def upper_connect(cfg: GraphConfig, state: GraphState, ids, lvls,
+                  max_lvl: int = 0, timer=None):
+    """Phase 2, beam path: connect the wave's level>=1 members (``ids``,
+    ``lvls``) at layers L-1..1.  Each descends greedily from the entry
+    point to its top connect layer min(level, old top)
+    (GraphConnector.cs:172-181), then connects layer by layer, chaining
+    each layer's closest accepted neighbour as the next entry.
+    ``max_lvl`` (0 = all layers) may be the wave's top level: the layers
+    above it connect nobody and leave the entries as they are.  Returns
+    each member's entry for layer 0."""
+    Wu = ids.shape[0]
+    L = state.num_levels
+    top = L - 1 if max_lvl <= 0 else min(L - 1, max_lvl)
+    ids = ids.long()
+    lvls = lvls.long()
+    vecs = state.vectors[ids]
+    vn = state.norms[ids]
+    has_graph, old_top = _old_top(state)
+    conn_top = torch.minimum(lvls, old_top)
+    ep_b = torch.where(has_graph, state.ep.long(), -1).expand(Wu)
+    with _phase(timer, "descent"):
+        entry, _ = greedy_descent(cfg, state, vecs, vn, ep_b,
+                                  old_top.expand(Wu), conn_top)
+    for layer in range(top, 0, -1):
+        conn = has_graph & (layer <= conn_top) & (lvls >= layer)
+        entry = _connect_at_layer(cfg, state, layer, ids, vecs, vn, entry,
+                                  conn, cfg.max_edges, timer)
+    return entry
+
+
+def base_connect(cfg: GraphConfig, state: GraphState, ids, lvls,
+                 up_lanes=None, up_entry=None, timer=None):
+    """Phase 3, beam path: layer-0 connections for the whole wave,
+    entry-point promotion and count update.
+
+    ``up_lanes`` (wave positions of the upper members) and ``up_entry``
+    carry the entries ``upper_connect`` chained down; every other member
+    descends greedily from the global entry point (FindEntryPoint,
+    GraphNavigator.cs:27).  The descent reads this wave's upper edges, so
+    it can land on a member that has no layer-0 edges yet: an entry of
+    out-degree zero falls back to the pre-wave entry point."""
+    W = ids.shape[0]
+    C = state.capacity
+    dev = ids.device
+    ids = ids.long()
+    lvls = lvls.long()
+    hint = torch.full((W,), -1, dtype=torch.int64, device=dev)
+    if up_lanes is not None:
+        hint[up_lanes.long()] = up_entry.long()
+    hint_ok = hint >= 0
+    vecs = state.vectors[ids]
+    vn = state.norms[ids]
+    has_graph, old_top = _old_top(state)
+    ep_b = torch.where(has_graph, state.ep.long(), -1).expand(W)
+    start = torch.where(hint_ok, hint, ep_b)
+    start_layer = torch.where(hint_ok, 0, old_top.expand(W))
+    with _phase(timer, "descent"):
+        entry, _ = greedy_descent(cfg, state, vecs, vn, start, start_layer,
+                                  torch.zeros((W,), dtype=torch.int64,
+                                              device=dev))
+    entry_ok = state.deg0[entry.clamp(0, C - 1)] > 0
+    entry = torch.where(entry_ok, entry, ep_b)
+    _connect_at_layer(cfg, state, 0, ids, vecs, vn, entry,
+                      has_graph.expand(W), 2 * cfg.max_edges, timer)
+
+    best_i = torch.argmax(lvls)
+    new_ep = torch.where(lvls[best_i] > old_top, ids[best_i], state.ep.long())
+    state.ep.copy_(new_ep)
+    state.count += W

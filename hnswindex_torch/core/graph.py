@@ -103,6 +103,16 @@ def nbr_slice(state: GraphState, layer: int):
     return state.nbru[layer - 1], state.degu[layer - 1]
 
 
+def upper_rows(state: GraphState, lay: torch.Tensor, ids: torch.Tensor):
+    """Upper-layer neighbour rows of ``ids`` at per-lane layers ``lay``
+    (both (B,)).  Only the greedy descent reads them, and it walks layers
+    >= 1 only: a lane whose ``lay`` is out of range gathers a clamped row
+    that the caller must mask."""
+    Lu = state.nbru.shape[0]
+    layu = (lay.long() - 1).clamp(0, Lu - 1)
+    return state.nbru[layu, ids.long()]
+
+
 def dense_tables(state: GraphState):
     """Host (L, C, K0) nbr / (L, C) deg view of the split tables (tests)."""
     nbr0 = state.nbr0.cpu().numpy()

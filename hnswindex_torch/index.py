@@ -1,16 +1,22 @@
-"""`HNSWIndex` — the index facade, main-path slice.
+"""`HNSWIndex` — the index facade.
 
 Counterpart of ``hnswindex_tpu/index.py``: ``add`` builds with
-wave-batched exact-candidate inserts (core/construct.py) and ``knn_query``
-serves unfiltered layer-0 k-NN through the packed engine (core/pack.py),
-or, when the pack does not fit ``pack_max_bytes``, through block tables
-built on the device (block.py, the at-scale fallback), then refines the
-returned pairs in full precision.
+wave-batched inserts (core/construct.py), from exact candidates while the
+corpus is at most ``exact_build_threshold`` rows and by beam search past
+it.  Unfiltered layer-0 ``knn_query`` is served by the packed engine
+(core/pack.py) once the corpus reaches ``pack_min_count``, by block tables
+built on the device when the pack does not fit ``pack_max_bytes``
+(block.py, the at-scale fallback), and by the unpacked graph search
+(core/search.py) otherwise; ``layer > 0``, ``range_query`` and
+``multi_layer_knn_query`` use the unpacked search, ``exact=True`` the
+two-stage brute-force scan (ops/bruteforce.py).  Returned pairs are
+refined in full precision.
 
 The device owns the graph state; the host owns slot allocation, level
 sampling (numpy RNG, seeded exactly like the reference), capacity growth
-and the wave schedule.  Everything outside the slice raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+and the wave schedule.  What is not ported yet (filters, removal, update,
+stats, snapshots) raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 from .core import construct as CS
 from .core import graph as G
 from .core import pack as PK
+from .core import search as SR
+from .ops import bruteforce as BF
 from .ops import distance as dst
 from .params import HNSWParameters
 from .utils.profiling import PhaseTimer
@@ -68,8 +76,19 @@ def resolve_pack_dtype(params, capacity: int, k: int, dim: int):
 WAVE_BUCKETS = (8, 64, 512, 4096)
 #: most level>=1 members in one wave (the reference's upper-lane ladder top)
 MAX_UPPER = 512
-#: queries per packed-search launch
+#: queries per search launch
 QUERY_BATCH = 1024
+#: lane count of the exact query's lane-min scan.  At the reference's
+#: 1,024 lanes a clustered corpus (clusters of ~500 rows) loses ~1.7% of
+#: its true top-10 to a cluster mate that shares the lane and ranks below
+#: it on the bf16 products (recall@10 0.983, the reference's exact bar
+#: 0.9825); 4,096 lanes hold four times fewer mates a lane (0.996).  The
+#: build keeps 1,024, so that both packages build the same graph.
+EXACT_LANES = 4096
+#: range-search result pool ladder (the reference's)
+RANGE_POOLS = (64, 512, 4096)
+#: k-NN seeds injected into the range pool (_range_once)
+RANGE_SEED_EF = 16
 #: floor of the reference's scan-prefix bucket ladder (the scan gate reads
 #: it; the port's scan itself covers the exact high-water prefix)
 SCAN_FLOOR = 1 << 20
@@ -163,6 +182,8 @@ class HNSWIndex:
         self._scan_hwm = 0           # 1 + highest slot ever activated
         #: per-phase build times (scan, prune, reverse, upper, ...)
         self.timer = PhaseTimer(self.device)
+        #: waves inserted on each build path
+        self.wave_counts = {"exact": 0, "beam": 0}
 
     # ------------------------------------------------------------------
     # construction
@@ -196,9 +217,6 @@ class HNSWIndex:
         n = a.shape[0]
         if n == 0:
             return np.empty(0, dtype=np.int32)
-        if self._count_host + n > self.params.exact_build_threshold:
-            raise _todo("building past exact_build_threshold (the beam "
-                        "path)", "queue 1 item 8")
         self._invalidate_caches()
         lvls = G.sample_levels(self._rng, n, self.params.distribution_rate,
                                self._cfg.max_levels)
@@ -251,11 +269,25 @@ class HNSWIndex:
 
     def _insert_wave(self, wid, wvec, wlvl, up: np.ndarray, max_lvl: int,
                      full: bool) -> None:
-        """One wave: store, connect upper members, connect layer 0."""
+        """One wave: store, connect upper members, connect layer 0; on the
+        exact path while the corpus is at most ``exact_build_threshold``
+        rows, on the beam path past it (reference ``_insert_wave_dev``)."""
         cfg, st = self._cfg, self._state
+        upt = torch.as_tensor(up).to(self.device) if up.size else None
+        if self._count_host > self.params.exact_build_threshold:
+            self.wave_counts["beam"] += 1
+            with self.timer.phase("beam_wave"):
+                CS.scatter_wave(cfg, st, wid, wvec, wlvl)
+                ue = None
+                if upt is not None:
+                    with self.timer.phase("upper"):
+                        ue = CS.upper_connect(cfg, st, wid[upt], wlvl[upt],
+                                              max_lvl, self.timer)
+                CS.base_connect(cfg, st, wid, wlvl, upt, ue, self.timer)
+            return
+        self.wave_counts["exact"] += 1
         CS.scatter_wave(cfg, st, wid, wvec, wlvl)
-        if up.size:
-            upt = torch.as_tensor(up).to(self.device)
+        if upt is not None:
             with self.timer.phase("upper"):
                 CS.upper_connect_exact(cfg, st, wid[upt], wlvl[upt],
                                        self._upper_ids, max_lvl)
@@ -288,16 +320,18 @@ class HNSWIndex:
         return self._host_vectors
 
     def _get_pack(self) -> Optional[PK.QueryPack]:
-        """The packed-neighbourhood tables, built on first use.  None when
-        the pack does not fit ``pack_max_bytes`` (``_pack_refusal`` is then
-        "budget", which the block fallback gates on)."""
+        """The packed-neighbourhood tables, built on first use.  None means
+        "serve unpacked", and ``_pack_refusal`` says why: "disabled"
+        (``pack_queries="off"``), "too_small" (under ``pack_min_count`` in
+        "auto") or "budget" (past ``pack_max_bytes``, which the block
+        fallback gates on)."""
         p = self.params
-        if p.pack_queries == "off" or (p.pack_queries == "auto"
-                                       and self._count_host
-                                       < p.pack_min_count):
-            raise _todo("layer-0 search without the query pack (the "
-                        "unpacked beam; use pack_queries='on' below "
-                        "pack_min_count)", "queue 1 item 8")
+        if p.pack_queries == "off":
+            self._pack_refusal = "disabled"
+            return None
+        if p.pack_queries == "auto" and self._count_host < p.pack_min_count:
+            self._pack_refusal = "too_small"
+            return None
         if self._pack is not None:
             return self._pack
         C = self._state.capacity
@@ -406,24 +440,25 @@ class HNSWIndex:
 
     def knn_query(self, queries, k: int, filter_fnc=None, layer: int = 0,
                   exact: bool = False) -> Tuple[np.ndarray, np.ndarray]:
-        """Batched layer-0 k-NN (HNSWIndex.cs:107-137).  Returns
-        (ids (n, k) int32, dists (n, k) float32), -1/NaN padded."""
+        """Batched k-NN at ``layer`` (HNSWIndex.cs:107-137).  Returns
+        (ids (n, k) int32, dists (n, k) float32), -1/NaN padded.
+        ``exact=True`` scans the whole corpus (ops/bruteforce.exact_knn2);
+        at ``layer > 0`` only rows of level >= layer are candidates."""
         if filter_fnc is not None:
             raise _todo("filtered knn_query", "queue 1 item 9")
-        if layer != 0:
-            raise _todo("knn_query at layer > 0", "queue 1 item 8")
-        if exact:
-            raise _todo("knn_query(exact=True)", "queue 1 item 9")
         q = _as_2d_f32(queries, self.dim)
         n = q.shape[0]
         if self._count_host <= 0 or k < 1:
             return (np.full((n, k), -1, np.int32),
                     np.full((n, k), np.nan, np.float32))
+        if exact:
+            return self._exact_query(q, k, layer)
         ef = max(self.params.min_nn, k)          # HNSWIndex.cs:115
-        fb = self._get_block_fallback()
-        if fb is not None:
-            return self._block_fallback_query(fb, q, k)
-        ids = self._search_ids(q, ef)
+        if layer == 0:
+            fb = self._get_block_fallback()
+            if fb is not None:
+                return self._block_fallback_query(fb, q, k)
+        ids = self._search_ids(q, ef, layer)
         out_ids = np.empty((n, k), np.int32)
         out_d = np.empty((n, k), np.float32)
         for i in range(0, n, QUERY_BATCH):
@@ -431,26 +466,204 @@ class HNSWIndex:
             out_ids[i:j], out_d[i:j] = self._refine(q[i:j], ids[i:j], k)
         return out_ids, out_d
 
-    def _search_ids(self, q: np.ndarray, ef: int) -> np.ndarray:
-        """Packed layer-0 search in batches; returns (n, ef) candidate ids."""
+    def _search_ids(self, q: np.ndarray, ef: int, layer: int = 0
+                    ) -> np.ndarray:
+        """Graph search in batches: the pack at layer 0 when there is one,
+        the unpacked descent + beam otherwise.  Returns (n, ef) candidate
+        ids."""
         expand = max(1, self.params.query_expand)
         max_iters = (self._cfg.search_iter_factor * ef) // expand + 16
-        pk = self._get_pack()
-        if pk is None:
-            raise _todo("layer-0 search past pack_max_bytes without the "
-                        "block fallback (the unpacked beam; the fallback "
-                        "needs block_fallback='auto' and count >= "
-                        "pack_min_count)", "queue 1 item 8")
+        pk = self._get_pack() if layer == 0 else None
         n = q.shape[0]
         out = np.empty((n, ef), np.int32)
         for i in range(0, n, QUERY_BATCH):
             j = min(n, i + QUERY_BATCH)
             qt = torch.as_tensor(q[i:j]).to(self.device)
-            _, ids = PK.packed_knn_search(self._cfg, pk, qt, ef, max_iters,
-                                          expand=expand,
-                                          n_entry=min(8, ef))
+            if pk is not None:
+                _, ids = PK.packed_knn_search(self._cfg, pk, qt, ef,
+                                              max_iters, expand=expand,
+                                              n_entry=min(8, ef))
+            else:
+                _, ids = SR.knn_search(self._cfg, self._state, qt, layer,
+                                       ef, max_iters, expand=expand)
             out[i:j] = ids.cpu().numpy()
         return out
+
+    def _exact_query(self, q: np.ndarray, k: int, layer: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Brute-force k-NN over the allowed rows (active, and of level >=
+        ``layer``): the two-stage scan over the coarse table at EXACT_LANES
+        lanes (reference ``_exact_query``), refined like the graph path."""
+        st = self._state
+        allowed = st.active
+        if layer > 0:
+            allowed = allowed & (st.level >= layer)
+        ct = st.coarse_table
+        n = q.shape[0]
+        out_ids = np.empty((n, k), np.int32)
+        out_d = np.empty((n, k), np.float32)
+        for i in range(0, n, QUERY_BATCH):
+            j = min(n, i + QUERY_BATCH)
+            qt = torch.as_tensor(q[i:j]).to(self.device)
+            if ct is not None:
+                _, ids = BF.exact_knn2(self.metric, st.vectors, ct, st.norms,
+                                       allowed, qt, k, lanes=EXACT_LANES)
+            else:
+                _, ids = BF.exact_knn(self.metric, st.vectors, st.norms,
+                                      allowed, qt, k)
+            out_ids[i:j], out_d[i:j] = self._refine(q[i:j],
+                                                    ids.cpu().numpy(), k)
+        return out_ids, out_d
+
+    def range_query(self, queries, radius: float, filter_fnc=None,
+                    layer: int = 0) -> Tuple[List[np.ndarray],
+                                             List[np.ndarray]]:
+        """Batched radius search (HNSWIndex.cs:144-168).  Returns ragged
+        per-query (ids, dists) lists, ascending by distance.
+
+        One exact count of in-radius rows (ops/bruteforce.range_count)
+        sizes each batch's result pool from RANGE_POOLS; queries whose
+        count (plus the RANGE_SEED_EF seeds) reaches the top pool, and
+        queries still saturated at it, are answered by an exact scan."""
+        if filter_fnc is not None:
+            raise _todo("filtered range_query", "queue 1 item 9")
+        q = _as_2d_f32(queries, self.dim)
+        n = q.shape[0]
+        if self._count_host <= 0:
+            return ([np.empty(0, np.int32) for _ in range(n)],
+                    [np.empty(0, np.float32) for _ in range(n)])
+        st = self._state
+        r32 = float(np.float32(radius))
+        counts = np.empty(n, np.int64)
+        for i in range(0, n, QUERY_BATCH):
+            j = min(n, i + QUERY_BATCH)
+            counts[i:j] = BF.range_count(
+                self.metric, st.vlo, st.norms, st.active,
+                torch.as_tensor(q[i:j]).to(self.device), r32).cpu().numpy()
+
+        ids_out: List[Optional[np.ndarray]] = [None] * n
+        d_out: List[Optional[np.ndarray]] = [None] * n
+        # the pool holds the in-range rows and the (possibly out-of-range)
+        # seeds, which are expanded once to reach disconnected pockets
+        is_exact = counts + RANGE_SEED_EF >= RANGE_POOLS[-1]
+        for i in np.flatnonzero(is_exact):
+            ids_out[i], d_out[i] = self._range_exact_host(q[i], radius)
+        graph_rows = np.flatnonzero(~is_exact)
+        for i in range(0, graph_rows.size, QUERY_BATCH):
+            take = graph_rows[i:i + QUERY_BATCH]
+            qt = torch.as_tensor(q[take]).to(self.device)
+            need = int(counts[take].max())
+            start = next((p for p in RANGE_POOLS
+                          if p >= need + RANGE_SEED_EF + 1),
+                         RANGE_POOLS[-1])
+            for pool in [p for p in RANGE_POOLS if p >= start]:
+                _, ids, sat = self._range_once(qt, r32, layer, pool)
+                sat_np = sat.cpu().numpy()
+                if not sat_np.any():
+                    break
+            ids_np = ids.cpu().numpy()
+            for r, t in enumerate(take):
+                if sat_np[r]:
+                    ids_out[t], d_out[t] = self._range_exact_host(q[t],
+                                                                  radius)
+                    continue
+                row = ids_np[r]
+                row = row[row >= 0]
+                rid, rd = self._refine(q[t:t + 1],
+                                       row[None, :] if row.size else
+                                       np.full((1, 1), -1, np.int32),
+                                       max(row.size, 1))
+                keep = (rid[0] >= 0) & (rd[0] <= radius)
+                ids_out[t], d_out[t] = rid[0][keep], rd[0][keep]
+        return ids_out, d_out
+
+    def _range_exact_host(self, q1: np.ndarray, radius: float
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact single-query range scan: float64 against the host mirror
+        while it is affordable, the device's blocked float32 scan
+        (ops/bruteforce.range_distances) and one (C,) transfer beyond."""
+        st = self._state
+        if not self._mirrorable():
+            d = BF.range_distances(
+                self.metric, st.vectors, st.norms, st.active,
+                torch.as_tensor(q1).to(self.device),
+                float(np.float32(radius))).cpu().numpy()
+            hit = np.flatnonzero(np.isfinite(d))
+            order = np.argsort(d[hit], kind="stable")
+            return (hit[order].astype(np.int32),
+                    d[hit][order].astype(np.float32))
+        hv = self._host_vecs().astype(np.float64)
+        qq = q1.astype(np.float64)
+        if self.metric == "sq_euclid":
+            d = ((hv - qq) ** 2).sum(1)
+        else:
+            dot = hv @ qq
+            if self.metric == "cosine":
+                denom = np.linalg.norm(qq) * np.linalg.norm(hv, axis=1)
+                d = np.where(denom > 0, 1.0 - dot / np.where(
+                    denom > 0, denom, 1.0), 1.0)
+            else:
+                d = 1.0 - dot
+        d = np.where(st.active.cpu().numpy(), d, np.inf)
+        hit = np.flatnonzero(d <= radius)
+        order = np.argsort(d[hit], kind="stable")
+        return (hit[order].astype(np.int32),
+                d[hit][order].astype(np.float32))
+
+    def _range_once(self, qt: torch.Tensor, radius: float, layer: int,
+                    pool: int):
+        """One graph range pass: seeds from a k-NN beam of width
+        RANGE_SEED_EF (in-range pockets not linked to the greedy entry
+        through in-range nodes), then ``range_search`` at ``pool``."""
+        st = self._state
+        qn = dst.norm_data(self.metric, qt)
+        _, seeds = SR.knn_search(
+            self._cfg, st, qt, layer, RANGE_SEED_EF,
+            self._cfg.search_iter_factor * RANGE_SEED_EF + 16)
+        ep_ok = (st.ep >= 0).expand(seeds.shape)
+        return SR.range_search(self._cfg, st, qt, qn, seeds, ep_ok, layer,
+                               radius, pool, pool * 4 + 16)
+
+    def multi_layer_knn_query(self, query, k: int,
+                              max_layer: int = 2 ** 30, min_layer: int = 0
+                              ) -> List[Optional[Tuple[np.ndarray,
+                                                       np.ndarray]]]:
+        """Per-layer k-NN chain (MultiLayerKnnQuery, HNSWIndex.cs:173-187):
+        descend greedily to ``max_layer``, then search each layer from the
+        top with a beam of width ``k``, chain the best refined hit as the
+        next layer's entry, and report the other hits of each layer (the
+        reference drops the closest, HNSWIndex.cs:184).  Returns a list
+        indexed by layer; entries below ``min_layer`` are None."""
+        if self._count_host <= 0 or k < 1:
+            return []
+        q = _as_2d_f32(query, self.dim)[:1]
+        st = self._state
+        dev = self.device
+        qt = torch.as_tensor(q).to(dev)
+        qn = dst.norm_data(self.metric, qt)
+        ep = int(st.ep)
+        ep_level = int(st.level[ep])
+        if ep_level >= max_layer:
+            entry, _ = SR.greedy_descent(
+                self._cfg, st, qt, qn, torch.tensor([ep], device=dev),
+                torch.tensor([ep_level], device=dev),
+                torch.tensor([max_layer], device=dev))
+            ep = int(entry[0])
+            ep_level = max_layer if ep_level > max_layer else ep_level
+        top = min(ep_level, max_layer)
+        result: List[Optional[Tuple[np.ndarray, np.ndarray]]] = \
+            [None] * (top + 1)
+        max_iters = self._cfg.search_iter_factor * k + 16
+        ok = torch.ones((1,), dtype=torch.bool, device=dev)
+        for layer in range(top, min_layer - 1, -1):
+            _, ids = SR.beam_search(self._cfg, st, qt, qn,
+                                    torch.tensor([ep], device=dev), ok,
+                                    layer, k, max_iters)
+            rid, rd = self._refine(q, ids.cpu().numpy(), k)
+            valid = rid[0] >= 0
+            ep = int(rid[0][0]) if valid.any() else ep
+            result[layer] = (rid[0][valid][1:], rd[0][valid][1:])
+        return result
 
     # ------------------------------------------------------------------
     # introspection
@@ -480,15 +693,6 @@ class HNSWIndex:
 
     def update(self, ids, vecs) -> None:
         raise _todo("update", "queue 1 item 9")
-
-    def range_query(self, queries, radius: float, filter_fnc=None,
-                    layer: int = 0) -> Tuple[List[np.ndarray],
-                                             List[np.ndarray]]:
-        raise _todo("range_query", "queue 1 item 9")
-
-    def multi_layer_knn_query(self, query, k: int,
-                              max_layer: int = 2 ** 30, min_layer: int = 0):
-        raise _todo("multi_layer_knn_query", "queue 1 item 9")
 
     def get_info(self):
         raise _todo("get_info", "queue 1 item 11")

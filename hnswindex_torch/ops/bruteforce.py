@@ -1,17 +1,18 @@
-"""Exact brute-force k-NN.
+"""Exact brute-force k-NN and range scans.
 
-Counterpart of ``hnswindex_tpu/ops/bruteforce.py``, for the two scans the
-exact build uses:
+Counterpart of ``hnswindex_tpu/ops/bruteforce.py``:
 
 * ``exact_knn`` — blocked float32 product + top-k per block, then an exact
   merge.  The reference selects per block with ``lax.approx_min_k``; here
   ``torch.topk`` is exact, so the port is never less exact.
-* ``exact_knn2`` — two-stage: the bf16 corpus mirror goes through the
-  lane-min scan (ops/fused_scan, kernel K1), the top S lanes survive, and
-  ``_rescore_topk`` rescores them in float32.
-
-``exact_knn2``'s panel branch (survivor width above ``FUSED_BS``) serves
-only the removal path and is not ported yet.
+* ``exact_knn2`` — two-stage: stage 1 keeps S survivors per query from the
+  bf16 corpus mirror, ``_rescore_topk`` rescores them in float32.  Stage 1
+  is the lane-min scan (ops/fused_scan, kernel K1) while S fits its 1,024
+  lanes, and a chunked bf16-operand product with an exact top-S (the
+  reference's panel branch) above that.
+* ``range_distances`` / ``range_count`` — blocked float32 scans that give
+  one query's in-radius distances and each query's in-radius count (the
+  facade's exact range path and its pool sizing).
 """
 
 from __future__ import annotations
@@ -82,22 +83,27 @@ def exact_knn(metric: str, vectors: torch.Tensor, norms: torch.Tensor,
 
 def exact_knn2(metric: str, vectors: torch.Tensor, coarse: torch.Tensor,
                norms: torch.Tensor, active: torch.Tensor, q: torch.Tensor,
-               k: int, exclude=None):
-    """Two-stage exact top-k: lane-min scan of the bf16 mirror + exact f32
+               k: int, exclude=None, lanes: int = FUSED_BS):
+    """Two-stage exact top-k: S survivors of the bf16 mirror + exact f32
     rescore.  ``coarse/norms/active`` may be a prefix of the store (the
     build scans the high-water prefix); survivor ids are global ids and the
     rescore gathers from the full ``vectors``.  Same contract as
-    :func:`exact_knn`."""
+    :func:`exact_knn`.
+
+    ``lanes`` is the lane-min scan's lane count (a multiple of 64, at least
+    ``FUSED_BS``).  A true neighbour is lost when a row of its lane ranks
+    below it on the bf16 products, so more lanes lose fewer; the build
+    keeps the reference's 1,024, the exact query takes more."""
     from .fused_scan import lane_min_scan, rank_transform
 
     Cs = coarse.shape[0]
     B = q.shape[0]
     S = min(Cs, max(OVERSAMPLE * k, k + SURVIVOR_FLOOR))
-    if S > FUSED_BS:
-        raise ValueError(
-            f"exact_knn2: survivor width {S} > {FUSED_BS} needs the panel "
-            "branch, which is not ported yet (ROADMAP queue 1 item 10)")
     qn = dst.norm_data(metric, q)
+    if S > FUSED_BS:
+        si = _panel_survivors(metric, coarse, norms, active, q, qn, S,
+                              exclude)
+        return _rescore_topk(metric, vectors, norms, q, qn, si, k)
     mult, bias = rank_transform(metric, norms, active)
     exc = (exclude.to(torch.int32) if exclude is not None
            else torch.full((B,), -1, dtype=torch.int32, device=q.device))
@@ -106,12 +112,39 @@ def exact_knn2(metric: str, vectors: torch.Tensor, coarse: torch.Tensor,
     for b0 in range(0, B, QC):
         vals, ids = lane_min_scan(coarse, mult, bias,
                                   q[b0:b0 + QC].contiguous(),
-                                  exc[b0:b0 + QC].contiguous(), BS=FUSED_BS)
+                                  exc[b0:b0 + QC].contiguous(), BS=lanes)
         sv, sx = torch.topk(vals, S, dim=1, largest=False)
         sid = torch.gather(ids, 1, sx).long()
         sis.append(torch.where(sv < 1.0e37, sid, -1))
     si = torch.cat(sis, dim=0)
     return _rescore_topk(metric, vectors, norms, q, qn, si, k)
+
+
+def _panel_survivors(metric: str, coarse, norms, active, q, qn, S: int,
+                     exclude=None):
+    """Stage 1 for survivor widths past the lane count (the reference's
+    panel branch): query chunks against the whole prefix, bf16 operands
+    with float32 sums, masked, exact top-S.  Chunks of
+    ``max(16, 2^31 // (4 Cs))`` queries bound the (chunk, Cs) float32
+    panel to ~2 GB.  Survivors whose coarse distance is infinite are
+    masked rows and come back as -1."""
+    Cs = coarse.shape[0]
+    B = q.shape[0]
+    QC = min(B, max(16, (1 << 31) // (4 * Cs)))
+    cf = coarse.float()
+    qlo = q.to(torch.bfloat16).float()
+    col = torch.arange(Cs, device=q.device)
+    sis = []
+    for b0 in range(0, B, QC):
+        dots = qlo[b0:b0 + QC] @ cf.T
+        d = dst.from_dot(metric, dots, qn[b0:b0 + QC, None], norms[None, :])
+        d = torch.where(active[None, :], d, float("inf"))
+        if exclude is not None:
+            d = torch.where(col[None, :] == exclude[b0:b0 + QC, None].long(),
+                            float("inf"), d)
+        vals, idx = torch.topk(d, S, dim=1, largest=False)
+        sis.append(torch.where(torch.isfinite(vals), idx, -1))
+    return torch.cat(sis, dim=0)
 
 
 def _rescore_topk(metric: str, vectors, norms, q, qn, si, k: int):
@@ -133,3 +166,39 @@ def _rescore_topk(metric: str, vectors, norms, q, qn, si, k: int):
     fi = torch.gather(si, 1, order2)
     fi = torch.where(torch.isfinite(fd), fi, -1)
     return _pad_cols(fd, fi, k)
+
+
+def range_distances(metric: str, vectors: torch.Tensor, norms: torch.Tensor,
+                    active: torch.Tensor, q1: torch.Tensor, radius: float,
+                    block: int = _BLOCK) -> torch.Tensor:
+    """(C,) float32 distances of one query ``q1 (D,)`` to every active row
+    within ``radius``, inf elsewhere (the exact range path for corpora too
+    large to mirror on the host)."""
+    C = vectors.shape[0]
+    r = torch.tensor(radius, dtype=torch.float32, device=vectors.device)
+    qn = dst.norm_data(metric, q1[None])[0]
+    out = []
+    for c0 in range(0, C, max(1, block)):
+        c1 = min(C, c0 + block)
+        dots = vectors[c0:c1].float() @ q1.float()
+        d = dst.from_dot(metric, dots, qn, norms[c0:c1])
+        out.append(torch.where(active[c0:c1] & (d <= r), d, float("inf")))
+    return torch.cat(out)
+
+
+def range_count(metric: str, vectors: torch.Tensor, norms: torch.Tensor,
+                active: torch.Tensor, q: torch.Tensor, radius: float,
+                block: int = _BLOCK) -> torch.Tensor:
+    """(B,) int64 count of active rows within ``radius`` of each query,
+    one blocked scan (sizes the range-search pool up front)."""
+    C = vectors.shape[0]
+    r = torch.tensor(radius, dtype=torch.float32, device=vectors.device)
+    qn = dst.norm_data(metric, q)
+    cnt = torch.zeros((q.shape[0],), dtype=torch.int64, device=q.device)
+    for c0 in range(0, C, max(1, block)):
+        c1 = min(C, c0 + block)
+        vblk = vectors[c0:c1]
+        dots = q.to(vblk.dtype).float() @ vblk.float().T
+        d = dst.from_dot(metric, dots, qn[:, None], norms[None, c0:c1])
+        cnt += ((d <= r) & active[None, c0:c1]).sum(dim=1)
+    return cnt

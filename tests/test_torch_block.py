@@ -416,7 +416,7 @@ def test_block_padding_and_validation():
 
 
 def test_block_hnsw_router_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 12 remainder"):
         T.BlockIndex(DIM, router="hnsw", device="cpu")
 
 

@@ -4,10 +4,11 @@ the reference's tests/test_large_corpus_paths.py block-fallback tests).
 The pack budget is shrunk to zero, so plain layer-0 ``knn_query`` must be
 served from the device-built block tables (bf16 tiles off the coarse
 table, or int8 tiles when the assumed device memory is too small) instead
-of raising for the unported unpacked beam.  Bars: self-recall@1 > 0.85
-(the reference's own bar), distances ascending, a mutation drops the
-tables, ``block_fallback="off"`` keeps the ``NotImplementedError``.  The
-tables' parity with the reference's is in tests/test_torch_block.py."""
+of the unpacked beam.  Bars: self-recall@1 > 0.85 (the reference's own
+bar), distances ascending, a mutation drops the tables,
+``block_fallback="off"`` serves through the unpacked beam as the reference
+does.  The tables' parity with the reference's is in
+tests/test_torch_block.py."""
 
 import numpy as np
 import pytest
@@ -98,13 +99,32 @@ def test_block_fallback_invalidated_by_add(monkeypatch):
 
 
 @pytest.mark.parametrize("why", ["off", "below_pack_min_count"])
-def test_block_fallback_off_keeps_its_error(why):
-    vecs = np.random.default_rng(4243).random((300, 16), dtype=np.float32)
-    p = _params(block_fallback="off") if why == "off" else _params()
-    if why != "off":
-        p.pack_min_count = 32768
-    ix = T.HNSWIndex(16, parameters=p, device="cpu")
-    ix.add(vecs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ix.knn_query(vecs[:10], k=1)
-    assert ix._block_fb is None
+def test_block_fallback_off_keeps_its_error(why, monkeypatch):
+    """With block_fallback="off", or below pack_min_count, a pack refused
+    for its budget no longer raises: knn_query serves through the unpacked
+    beam and builds no block tables.  Held on the reference's 2,000 x 128
+    graph (test_torch_construct) against the reference with the same
+    parameters: the same ids up to near-tie swaps (test_torch_search's
+    bar)."""
+    import test_torch_construct as TCT
+    import test_torch_search as TTS
+    ji = TCT.jax_build()._impl
+    over = dict(pack_queries="on", pack_max_bytes=0, pack_min_count=0)
+    if why == "off":
+        over["block_fallback"] = "off"
+    else:
+        over["pack_min_count"] = 32768
+    ix = TTS.installed(ji, **over)
+    for name, value in over.items():
+        monkeypatch.setattr(ji.params, name, value)
+    monkeypatch.setattr(ji, "_pack", None)
+    monkeypatch.setattr(ji, "_block_fb", None)
+    vecs = TCT.corpus()
+    q = vecs[:64]
+    rid, rd = ix.knn_query(q, k=5)
+    jid, _ = ji.knn_query(q, k=5)
+    assert ix._block_fb is None and ji._block_fb is None
+    assert ix._pack_refusal == "budget"
+    assert TTS.near_tie_rows("sq_euclid", q, vecs, rid, jid).all()
+    assert (rid[:, 0] == np.arange(64)).mean() > 0.85
+    assert np.all(np.diff(rd, axis=1) >= 0)

@@ -149,3 +149,106 @@ def test_scan2_build_goes_through_lane_min_scan(builds):
     assert calls > 0
     overlap = _overlap(ji._state, t2._state)
     assert overlap[0] >= EDGE_BAR_SCAN2, overlap
+
+
+def _small_corpus(n, dim, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.random((8, dim)).astype(np.float32)
+    return (centers[rng.integers(0, 8, n)]
+            + 0.05 * rng.standard_normal((n, dim)).astype(np.float32))
+
+
+def _recall10(index, vecs, nq=200):
+    q64, v64 = vecs[:nq].astype(np.float64), vecs.astype(np.float64)
+    d = ((q64 * q64).sum(1)[:, None] + (v64 * v64).sum(1)[None]
+         - 2.0 * q64 @ v64.T)
+    gt = np.argsort(d, axis=1)[:, :10]
+    ids, _ = index.knn_query(vecs[:nq], 10)
+    return np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, gt)])
+
+
+BEAM_N, BEAM_DIM, BEAM_THRESHOLD = 1000, 32, 100
+
+
+def beam_params(mod):
+    return mod.HNSWParameters(collection_size=BEAM_N,
+                              exact_build_threshold=BEAM_THRESHOLD)
+
+
+@functools.lru_cache(maxsize=1)
+def jax_beam_build():
+    """The reference's beam-path build of a 1,000 x 32 clustered corpus
+    (exact_build_threshold=100), cached per process (test_torch_index's
+    threshold case compares against it).  Returns (vecs, HNSWIndex)."""
+    vecs = _small_corpus(BEAM_N, BEAM_DIM, 91)
+    ji = J.HNSWIndex(BEAM_DIM, "sq_euclid", beam_params(J))
+    ji.add(vecs)
+    return vecs, ji
+
+
+def test_beam_path_build_matches_reference():
+    """1,000 x 32 with exact_build_threshold=100: the waves from 128 built
+    rows on (872 rows) take the beam path in both packages.  Per-layer
+    edge overlap >= BEAM_EDGE_BAR; recall@10 of the unpacked query (200
+    corpus rows) within 0.01 of the reference's."""
+    vecs, ji = jax_beam_build()
+    ti = T.HNSWIndex(BEAM_DIM, "sq_euclid", beam_params(T), device="cpu")
+    ti.add(vecs)
+    assert ti.wave_counts == {"exact": 7, "beam": 3}
+    overlap = _overlap(ji._state, ti._state)
+    assert len(overlap) >= 2
+    assert min(overlap) >= BEAM_EDGE_BAR, overlap
+    _check_invariants(ti)
+    rec = {"torch": _recall10(ti, vecs), "jax": _recall10(ji, vecs)}
+    assert abs(rec["torch"] - rec["jax"]) <= 0.01, rec
+
+
+#: measured per-layer edge overlap of the beam-path build above with the
+#: reference's: 1.0 at every layer (recall@10 0.993 in both); held to the
+#: default build's bar
+BEAM_EDGE_BAR = EDGE_BAR
+
+
+def test_efc300_build_takes_panel_branch_in_both_packages():
+    """efConstruction=300 with BUILD_SCAN2_MIN patched to 0 in both
+    construct modules: every full-width wave (more than 8 rows at
+    max_wave_size=64) scans through exact_knn2 with survivor width
+    S = min(prefix, 1,200), which past 1,024 prefix rows is the panel
+    branch in both packages (the reference's on the CPU always is).  All
+    rows sit at level 0 (distribution_rate=0), which keeps the reference's
+    compiles few; the layer-0 edge sets match at EDGE_BAR (measured
+    0.9998)."""
+    from hnswindex_torch.ops import bruteforce as TB
+    from hnswindex_tpu.core import construct as JC
+    from hnswindex_tpu.ops import bruteforce as JB
+
+    n, dim = 1100, 16
+    vecs = _small_corpus(n, dim, 92)
+    traced, panels = [0], [0]
+    jref, tref = JB.exact_knn2, TB._panel_survivors
+
+    def jcount(*a, **k):
+        traced[0] += 1
+        return jref(*a, **k)
+
+    def tcount(*a, **k):
+        panels[0] += 1
+        return tref(*a, **k)
+
+    built = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TC, "BUILD_SCAN2_MIN", 0)
+        mp.setattr(JC, "BUILD_SCAN2_MIN", 0)
+        mp.setattr(JB, "exact_knn2", jcount)
+        mp.setattr(TB, "_panel_survivors", tcount)
+        for name, mod, extra in (("torch", T, dict(device="cpu")),
+                                 ("jax", J, {})):
+            p = mod.HNSWParameters(collection_size=n, max_candidates=300,
+                                   distribution_rate=0.0, max_wave_size=64)
+            ix = mod.HNSWIndex(dim, "sq_euclid", p, **extra)
+            ix.add(vecs)
+            built[name] = ix
+    assert traced[0] > 0, "the reference never traced exact_knn2"
+    assert panels[0] > 0, "the port never took the panel branch"
+    overlap = _overlap(built["jax"]._state, built["torch"]._state)
+    assert overlap and min(overlap) >= EDGE_BAR, overlap

@@ -1,6 +1,8 @@
 """Facade parity: hnswindex_torch.Index / HNSWIndex against hnswindex_tpu's
 on the main path (add, then unfiltered layer-0 knn_query through the
-pack), and the contract that every call outside the slice raises.
+pack), on the unpacked engine's calls (knn_query without the pack, at
+layer > 0 and exact, range_query, multi_layer_knn_query) on the
+reference's graph, and the contract that every call not ported yet raises.
 
 Bars: the reference quickstart's shape (2,000 x 128, sq_euclid, M=16, k=1,
 on the bench's clustered corpus) has self-recall > 0.85 (on its first
@@ -14,6 +16,7 @@ import torch
 import hnswindex_torch as T
 import hnswindex_tpu as J
 import test_torch_construct as TCT
+import test_torch_search as TTS
 from hnswindex_torch import index as TI
 
 torch.set_num_threads(1)
@@ -87,41 +90,162 @@ def test_introspection_and_padding(small):
         idx.set_max_edges(8)
 
 
+@pytest.fixture(scope="module")
+def pair():
+    """The reference's 2,000 x 128 build (test_torch_construct) and a port
+    index holding the same graph; queries are perturbed corpus rows."""
+    ji = TCT.jax_build()._impl
+    vecs = TCT.corpus()
+    rng = np.random.default_rng(12)
+    q = (vecs[:100] + 0.02 * rng.standard_normal((100, TCT.DIM))).astype(
+        np.float32)
+    return ji, TTS.installed(ji), vecs, q
+
+
+def _same_knn(ti, ji, vecs, q, k, **kw):
+    """knn_query through both packages: the same ids up to near-tie swaps
+    (test_torch_search's bar), float32 distances at rtol=atol=1e-5 where
+    the ids agree.  Returns the port's ids."""
+    tids, td = ti.knn_query(q, k, **kw)
+    jids, jd = ji.knn_query(q, k, **kw)
+    assert TTS.near_tie_rows("sq_euclid", q, vecs, tids, jids).all()
+    same = tids == jids
+    np.testing.assert_allclose(td[same], jd[same], rtol=1e-5, atol=1e-5)
+    assert (np.diff(td, axis=1) >= 0).all()
+    return tids
+
+
+def _layer_matches(pair):
+    ji, ti, vecs, q = pair
+    tids = _same_knn(ti, ji, vecs, q, 10, layer=1)
+    assert (ti._state.level.numpy()[tids] >= 1).all()
+
+
+def _exact_matches(pair):
+    """exact=True at k=10: the port's stage 1 is the lane-min scan at
+    4,096 lanes, which on these 2,048 rows holds at most one row a lane,
+    so it keeps every true neighbour as the reference's panel branch on
+    the CPU does: the same ids up to near-tie swaps."""
+    ji, ti, vecs, q = pair
+    _same_knn(ti, ji, vecs, q, 10, exact=True)
+
+
+def _range_matches(pair):
+    """range_query at the median distance of the 10th neighbour: the same
+    id sets up to near-radius ids, ascending distances <= radius."""
+    ji, ti, vecs, q = pair
+    q = q[:32]
+    d = TTS.d64("sq_euclid", q, vecs,
+                np.broadcast_to(np.arange(len(vecs)), (len(q), len(vecs))))
+    radius = float(np.float32(np.median(np.sort(d, axis=1)[:, 9])))
+    tids, tds = ti.range_query(q, radius)
+    jids, _ = ji.range_query(q, radius)
+    assert len(tids) == len(q)
+    for r in range(len(q)):
+        assert (np.diff(tds[r]) >= 0).all() and (tds[r] <= radius).all()
+        assert len(set(tids[r].tolist())) == tids[r].size
+        odd = np.asarray(sorted(set(tids[r]) ^ set(jids[r])), np.int64)
+        if odd.size:
+            dd = TTS.d64("sq_euclid", q[r:r + 1], vecs, odd[None])
+            sc = TTS.noise_scale("sq_euclid", q[r:r + 1], vecs, odd[None])
+            assert (np.abs(dd - radius) <= TTS.GAP * sc).all()
+
+
+def _multi_layer_matches(pair):
+    """multi_layer_knn_query: indexed by layer, the ids of layer l have
+    level >= l and equal the reference's up to near-tie swaps."""
+    ji, ti, vecs, q = pair
+    lvl = ti._state.level.numpy()
+    for r in range(4):
+        got = ti.multi_layer_knn_query(q[r], 10)
+        want = ji.multi_layer_knn_query(q[r], 10)
+        assert len(got) == len(want) >= 2
+        for layer, ((ti_, td_), (ji_, _)) in enumerate(zip(got, want)):
+            assert ti_.shape == ji_.shape
+            assert (lvl[ti_] >= layer).all()
+            assert (np.diff(td_) >= 0).all()
+            assert TTS.near_tie_rows("sq_euclid", q[r:r + 1], vecs,
+                                     ti_[None], ji_[None]).all()
+
+
+#: calls this slice ported: their cases now check the answer against the
+#: reference's
+_PORTED = {"range_query": _range_matches, "multi_layer": _multi_layer_matches,
+           "layer": _layer_matches, "exact": _exact_matches}
+
+
 @pytest.mark.parametrize("call", [
     lambda i, v: i.remove([0]),
     lambda i, v: i._impl.update([0], v[:1]),
-    lambda i, v: i.range_query(v[:1], 0.5),
-    lambda i, v: i.multi_layer_knn_query(v[0], 3),
+    "range_query",
+    "multi_layer",
     lambda i, v: i.get_info(),
     lambda i, v: i.get_connected_component_counts(),
     lambda i, v: i.serialize("unused.bin"),
     lambda i, v: T.Index.deserialize("unused.bin"),
     lambda i, v: i.knn_query(v[:1], 3, filter_fnc=[1, 2]),
-    lambda i, v: i.knn_query(v[:1], 3, layer=1),
-    lambda i, v: i.knn_query(v[:1], 3, exact=True),
+    "layer",
+    "exact",
     lambda i, v: T.ops.distance.register_metric("l1", lambda a, b: a),
 ], ids=["remove", "update", "range_query", "multi_layer", "get_info",
         "components", "serialize", "deserialize", "filter", "layer",
         "exact", "register_metric"])
-def test_out_of_slice_calls_raise(small, call):
+def test_out_of_slice_calls_raise(small, request, call):
+    """Calls outside the ported slices raise NotImplementedError naming
+    their ROADMAP item.  The calls the unpacked engine ported (range_query,
+    multi_layer_knn_query, knn_query at layer > 0 and exact=True) keep
+    their cases, which now hold the answer against the reference's on the
+    reference's graph."""
+    if isinstance(call, str):
+        _PORTED[call](request.getfixturevalue("pair"))
+        return
     idx, vecs = small
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(idx, vecs)
 
 
 @pytest.mark.parametrize("setting", ["auto", "off", "budget", "threshold"])
-def test_out_of_slice_configurations_raise(setting):
-    vecs = np.random.default_rng(2).random((64, 8), np.float32)
-    p = T.HNSWParameters(collection_size=64, pack_queries=setting
-                         if setting in ("auto", "off") else "on")
-    if setting == "budget":
-        p.pack_max_bytes = 1024
+def test_out_of_slice_configurations_raise(request, setting, monkeypatch):
+    """Configurations that needed the unpacked engine now answer as the
+    reference does.  auto (below pack_min_count), off, and a pack refused
+    for its budget (pack_max_bytes=1,024) with no block fallback (under
+    pack_min_count) serve through the unpacked beam on the reference's
+    graph, in both packages; threshold builds past exact_build_threshold
+    through the beam path (test_torch_construct's 1,000 x 32 build) and
+    answers as the reference's build does, up to near-tie swaps and the
+    build's edge differences (recall@10 within 0.01)."""
     if setting == "threshold":
-        p.exact_build_threshold = 32
-    idx = T.HNSWIndex(8, parameters=p, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.add(vecs)
-        idx.knn_query(vecs[:2], 3)
+        vecs, ji = TCT.jax_beam_build()
+        ti = T.HNSWIndex(TCT.BEAM_DIM, parameters=TCT.beam_params(T),
+                         device="cpu")
+        ti.add(vecs)
+        assert ti.wave_counts["beam"] > 0 and ti._get_pack() is None
+        rec = {"torch": TCT._recall10(ti, vecs),
+               "jax": TCT._recall10(ji, vecs)}
+        assert abs(rec["torch"] - rec["jax"]) <= 0.01, rec
+        return
+    ji, ti, vecs, q = request.getfixturevalue("pair")
+    over = dict(pack_queries="on", pack_max_bytes=1024) \
+        if setting == "budget" else dict(pack_queries=setting)
+    ti = TTS.installed(ji, **over)
+    for name, value in over.items():
+        monkeypatch.setattr(ji.params, name, value)
+    monkeypatch.setattr(ji, "_pack", None)
+    _same_knn(ti, ji, vecs, q, 10)
+    assert ti._pack is None and ti._block_fb is None
+    assert ti._pack_refusal == {"auto": "too_small", "off": "disabled",
+                                "budget": "budget"}[setting]
+
+
+@pytest.mark.parametrize("k,layer", [(300, 0), (10, 1)])
+def test_exact_query_matches_reference(pair, k, layer):
+    """exact=True at k=300 (survivor width 1,200: the panel branch in both
+    packages) and at layer 1 (only rows of level >= 1 are candidates): the
+    same ids as the reference's up to near-tie swaps."""
+    ji, ti, vecs, q = pair
+    tids = _same_knn(ti, ji, vecs, q[:20], k, exact=True, layer=layer)
+    assert (tids >= 0).all()
+    assert (ti._state.level.numpy()[tids] >= layer).all()
 
 
 def test_cuda_index_refuses_tf32():

@@ -16,8 +16,11 @@ the card scores through K2 and is exact when every block is probed.
 Lane-min scan vals at rtol=atol=1e-4, ids equal on >= 0.999 of live
 lanes, dead lanes -1; exact_knn2 on the card against the same call on the
 CPU: ids equal on >= 0.99 of entries, distances at rtol=atol=1e-5 where
-ids agree; a 2,000-row build on the card through the kernel keeps the row
-invariants and self-recall > 0.85."""
+ids agree, and as the exact query calls it at k=10 (the kernel) and
+k=300 (the panel branch), there at atol 1e-4 (small distances of large
+norms); a 2,000-row build on the card through the kernel keeps the row
+invariants and self-recall > 0.85; a 3,000-row beam-path build on the card
+matches the same build on the CPU at per-layer edge overlap >= 0.98."""
 
 import numpy as np
 import pytest
@@ -159,6 +162,74 @@ def test_exact_knn2_on_card_matches_cpu(dev):
     assert same.float().mean().item() >= 0.99
     torch.testing.assert_close(gd[same], cd[same], rtol=1e-5, atol=1e-5)
     assert not (gi == torch.arange(B)[:, None]).any()
+
+
+@pytest.mark.parametrize("K", [10, 300])
+def test_exact_query_scan_on_card_matches_cpu(dev, K):
+    """exact_knn2 as the exact query calls it (no exclude, the whole
+    capacity, 4,096 lanes): k=10 runs the lane-min kernel on the card (one
+    launch), k=300 (survivor width 1,200) the panel branch (no launch).
+    Ids equal on >= 0.99 of entries; where they agree the distances match
+    at rtol 1e-5 and atol 1e-4: the rescore is dot-decomposed at norms ~43
+    (||q||^2 + ||x||^2 ~ 86), where card and CPU sum in other orders
+    (measured up to 5.3e-5, on the queries' own rows at distance ~0.01)."""
+    rng = np.random.default_rng(4)
+    C, D, B = 16384, 128, 100
+    vecs = torch.from_numpy(rng.random((C, D)).astype(np.float32))
+    active = torch.from_numpy(rng.random(C) < 0.95)
+    q = vecs[:B] + 0.01
+    out = {}
+    for where in ("cpu", dev):
+        v = vecs.to(where)
+        n0 = TF.lane_min_scan.launches
+        out[str(where)] = [t.cpu() for t in TB.exact_knn2(
+            "sq_euclid", v, v.to(torch.bfloat16),
+            tdst.norm_data("sq_euclid", v), active.to(where), q.to(where),
+            K, lanes=4096)]
+        if where == dev:
+            assert TF.lane_min_scan.launches - n0 == (1 if K == 10 else 0)
+    (cd, ci), (gd, gi) = out["cpu"], out[str(dev)]
+    same = ci == gi
+    assert same.float().mean().item() >= 0.99
+    torch.testing.assert_close(gd[same], cd[same], rtol=1e-5, atol=1e-4)
+    assert (gi >= 0).all() and active[gi].all()
+
+
+def _edge_overlap(a, b):
+    """Per-layer |A & B| / |A | B| of two indexes' directed edge sets."""
+    from hnswindex_torch.core.graph import dense_tables
+    (na, da), (nb, db) = dense_tables(a._state), dense_tables(b._state)
+    out = []
+    for layer in range(na.shape[0]):
+        ea = {(u, int(v)) for u in range(na.shape[1])
+              for v in na[layer, u, :da[layer, u]]}
+        eb = {(u, int(v)) for u in range(nb.shape[1])
+              for v in nb[layer, u, :db[layer, u]]}
+        if ea or eb:
+            out.append(len(ea & eb) / len(ea | eb))
+    return out
+
+
+def test_beam_build_on_card_matches_cpu(dev):
+    """A 3,000 x 32 build whose waves past 100 rows take the beam path, on
+    the card and on the CPU: per-layer edge overlap >= 0.98 (the CPU
+    build's bar against the reference, test_torch_construct)."""
+    n, dim = 3000, 32
+    rng = np.random.default_rng(93)
+    centers = rng.random((8, dim)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 8, n)]
+            + 0.05 * rng.standard_normal((n, dim)).astype(np.float32))
+    built = {}
+    for where in ("cpu", dev):
+        ix = T.HNSWIndex(dim, "sq_euclid", T.HNSWParameters(
+            collection_size=n, exact_build_threshold=100), device=where)
+        ix.add(vecs)
+        assert ix.wave_counts["beam"] > 0
+        built[str(where)] = ix
+    overlap = _edge_overlap(built["cpu"], built[str(dev)])
+    assert len(overlap) >= 2 and min(overlap) >= 0.98, overlap
+    ids, _ = built[str(dev)].knn_query(vecs[:500], 1)
+    assert (ids[:, 0] == np.arange(500)).mean() > 0.85
 
 
 def test_build_on_card_runs_the_kernel(dev, monkeypatch):

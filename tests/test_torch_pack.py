@@ -12,6 +12,7 @@ Search ids agree on >= 0.99 of entries; the rank-distance identity holds
 on the port's tables."""
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +31,23 @@ torch.set_num_threads(1)
 EF = 10
 
 
+def _cosine_corpus(rng):
+    centers = rng.random((6, 32)).astype(np.float32)
+    return (centers[rng.integers(0, 6, 600)]
+            + 0.05 * rng.standard_normal((600, 32)).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=1)
+def cosine_build():
+    """The reference's 600 x 32 clustered cosine graph, cached per process
+    (test_torch_search loads it too).  Returns (vecs, HNSWIndex)."""
+    vecs = _cosine_corpus(np.random.default_rng(7))
+    ji = J.HNSWIndex(32, "cosine", J.HNSWParameters(collection_size=600,
+                                                    pack_queries="on"))
+    ji.add(vecs)
+    return vecs, ji
+
+
 @pytest.fixture(scope="module", params=["sq_euclid", "cosine"])
 def loaded(request):
     """sq_euclid: the 2,000 x 128 graph of test_torch_construct; cosine: a
@@ -40,12 +58,8 @@ def loaded(request):
         vecs = TCT.corpus()
         ji = TCT.jax_build()._impl
     else:
-        centers = rng.random((6, 32)).astype(np.float32)
-        vecs = (centers[rng.integers(0, 6, 600)]
-                + 0.05 * rng.standard_normal((600, 32)).astype(np.float32))
-        ji = J.HNSWIndex(32, metric, J.HNSWParameters(collection_size=600,
-                                                      pack_queries="on"))
-        ji.add(vecs)
+        vecs = _cosine_corpus(rng)
+        ji = cosine_build()[1]
     leaves = {f: np.asarray(getattr(ji._state, f)) for f in convert.FIELDS}
     tcfg = TG.GraphConfig(**dataclasses.asdict(ji._cfg))
     tstate = convert.state_from_numpy(leaves, tcfg, "cpu")
