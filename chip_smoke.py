@@ -55,6 +55,30 @@
    duplicate ids; recall of the in-radius sets printed); and
    ``multi_layer_knn_query`` on 8 rows (a list by layer, ids of level >=
    the layer).
+   Filters on the same index, 1,000 rows, recall@10 against the exact
+   top-10 over the allowed rows on the card: a seeded 50% id mask on the
+   packed path (ef 10) and the unpacked one (ef 64), bar 0.80 each, and on
+   ``exact=True`` (the lane-min kernel's launches counted, > 0), bar 0.99;
+   a vectorizable callable (column 0 above its median) on the packed path
+   from ef 64, bar 0.97 (column 0 follows the cluster centres, so half the
+   rows' passing neighbours lie past their own cluster; its recall at the
+   default ef and at 1,024 printed), and with ``exact=True`` (the exact
+   scan the widening escalates to, lane-min launches > 0), bar 0.99.
+   Every id must pass its filter, distances ascending and equal to the
+   direct formula.
+   Churn on the same index: ``remove`` of 100,000 seeded ids, the entry
+   point among them ("auto" resolves to "high"), with removals/s and the
+   phase split (mark, affected, candidates, repair): count 900,000, the
+   entry point active, no live row's edge into a removed row at any layer
+   (checked on the card), no removed id among 10,000 queries' answers, and
+   post/pre recall@10 of 1,000 surviving rows >= 0.98.  Then 10,000 fresh
+   rows are added (ids = the freed slots, last freed first; recall@1 on
+   themselves >= 0.90; lane-min launches > 0) and 10,000 surviving rows
+   updated by the generator's noise (sigma 0.03; ids and count unchanged,
+   ``items()`` shows the new vectors, recall@1 by the new vectors >= 0.85
+   at ef 64 and printed at the default ef and at 256: the moved rows sit
+   on their clusters' rims; lane-min launches > 0), and packed recall@10
+   of the live rows must stay >= 0.90.
 
 6. Block path: ``hnswindex_torch.BlockIndex(128, "sq_euclid",
    block_size=128, device="cuda")`` built on the same corpus;
@@ -65,6 +89,11 @@
    path's own traffic: the first 1,024 rows routed to 32 blocks each, as
    ``query_device`` routes them, against its plain version, timed beside
    gather + ``bmm``, with its distinct tiles and its bound.
+   ``BlockIndex(router="hnsw")`` on the same corpus: routed by a graph over
+   the centroids, ``knn_query(k=10, n_probe=32)`` on the 10,000 rows (q/s
+   beside the exact router's), recall@10 >= 0.90; after adding and removing
+   10,000 rows the router is rebuilt before the next query, recall@10 >=
+   0.90 against the live rows; block-scores launches > 0.
 7. Beam-path build: an ``Index`` of the first 200,000 rows with
    ``exact_build_threshold=20,000`` (the default is 2^24), so every wave
    past 20,000 built rows takes the beam path; prints inserts/s, the waves
@@ -105,6 +134,7 @@ K2_RAGGED = dict(NB=2_000, BS=192, B=1_001, P=13)
 K2_D1024_NB = 2_000         # blocks of the D=1024 comparison (1 GB of tiles)
 N_FALLBACK = 200_000        # rows of the facade-fallback index
 N_CHURN = 10_000            # rows added to / removed from the BlockIndex
+N_REMOVE = 100_000          # rows the bulk removal takes from the 1M index
 N_BEAM = 200_000            # rows of the beam-path build
 BEAM_THRESHOLD = 20_000     # its exact_build_threshold (default 2^24)
 NQ_SMALL = 1_000            # queries of the layer-1, range and k=300 phases
@@ -713,6 +743,304 @@ def multi_layer_phase(index, vecs) -> dict:
     return dict(top_layers=tops, queries_per_s=8 / s)
 
 
+def check_filtered(what: str, qi, qd, q: np.ndarray, vecs: np.ndarray,
+                   allowed: np.ndarray) -> None:
+    """Every id passes the filter, distances ascending and equal to the
+    direct formula."""
+    if (qi < 0).any() or not allowed[qi].all():
+        fail(f"{what}: padding or an id the filter does not allow")
+    direct = ((vecs[qi].astype(np.float64)
+               - q[:, None, :].astype(np.float64)) ** 2).sum(-1)
+    if (np.diff(qd, axis=1) < 0).any() or \
+            not np.allclose(qd, direct, rtol=1e-5, atol=1e-5):
+        fail(f"{what}: distances not ascending or not the direct formula")
+
+
+def filter_phase(index, vecs, xd) -> dict:
+    """Filters on the 1M index: a seeded 50% id mask on the packed,
+    unpacked (ef 64) and exact paths, and a vectorizable callable (column 0
+    above its median) on the packed path; recall@10 against the exact
+    top-10 over the allowed rows on the card."""
+    import torch
+    from hnswindex_torch.ops import fused_scan as FS
+
+    impl = index._impl
+    n = vecs.shape[0]
+    q = vecs[:NQ_SMALL]
+    allowed = np.random.default_rng(SEED + 7).random(n) < 0.5
+    fmask = np.zeros(impl._state.capacity, bool)
+    fmask[:n] = allowed
+    _, gt = exact_topk(xd, q, 10, torch.as_tensor(allowed, device="cuda"))
+    out = {}
+
+    def run(name, fn, bar):
+        (qi, qd), s = timed_query(fn)
+        check_filtered(f"filtered {name}", qi, qd, q, vecs, allowed)
+        rec = recall_at_10(qi, gt)
+        out[name] = dict(queries_per_s=NQ_SMALL / s, recall_at_10=rec)
+        print(f"filtered {name}: {NQ_SMALL} x k=10, {NQ_SMALL / s:.1f} q/s; "
+              f"recall@10 {rec:.4f}", flush=True)
+        if rec < bar:
+            fail(f"filtered {name} recall@10 {rec} < {bar}")
+
+    print(f"filters: a seeded 50% id mask ({int(allowed.sum())} rows "
+          f"allowed), then a callable", flush=True)
+    run("packed", lambda: index.knn_query(q, 10, filter_fnc=fmask), 0.80)
+    p = index._params
+    keep = (p.pack_queries, p.min_nn)
+    p.pack_queries, p.min_nn = "off", 64
+    try:
+        run("unpacked ef=64",
+            lambda: index.knn_query(q, 10, filter_fnc=fmask), 0.80)
+    finally:
+        p.pack_queries, p.min_nn = keep
+    FS.lane_min_scan.launches = 0
+    run("exact", lambda: index.knn_query(q, 10, filter_fnc=fmask,
+                                         exact=True), 0.99)
+    out["exact"]["launches"] = FS.lane_min_scan.launches
+    print(f"filtered exact: lane_min_scan launches "
+          f"{out['exact']['launches']}", flush=True)
+    if out["exact"]["launches"] <= 0:
+        fail("the filtered exact query never launched the lane-min kernel")
+
+    # a callable on a stored vector, vectorizable over rows: column 0 above
+    # its median.  Column 0 follows the cluster centres, so half the query
+    # rows sit in a cluster that fails it and their passing neighbours lie
+    # past their own cluster, deep in the unfiltered order, where widening
+    # beams keep missing a few: the packed path (ef from 64) is held to
+    # 0.97 and its recall at other widths printed; with exact=True the
+    # same callable runs the exact scan that the widening escalates to
+    # (K1, counted), held to 0.99
+    med = float(np.median(vecs[:, 0]))
+    allowed = vecs[:, 0] > med
+    _, gt = exact_topk(xd, q, 10, torch.as_tensor(allowed, device="cuda"))
+
+    def pred(v):
+        return np.asarray(v)[..., 0] > med
+
+    p.min_nn = 64
+    try:
+        run("callable", lambda: index.knn_query(q, 10, filter_fnc=pred),
+            0.97)
+        for mn in (keep[1], 1024):
+            p.min_nn = mn
+            qi, _ = index.knn_query(q, 10, filter_fnc=pred)
+            rec = recall_at_10(qi, gt)
+            out["callable"][f"recall_at_10_min_nn_{mn}"] = rec
+            print(f"filtered callable at min_nn={mn}: recall@10 {rec:.4f}",
+                  flush=True)
+    finally:
+        p.min_nn = keep[1]
+    FS.lane_min_scan.launches = 0
+    run("callable exact", lambda: index.knn_query(q, 10, filter_fnc=pred,
+                                                  exact=True), 0.99)
+    out["callable exact"]["launches"] = FS.lane_min_scan.launches
+    print(f"filtered callable exact: lane_min_scan launches "
+          f"{out['callable exact']['launches']}", flush=True)
+    if out["callable exact"]["launches"] <= 0:
+        fail("the callable's exact scan never launched the lane-min kernel")
+    return out
+
+
+def live_recall(index, q: np.ndarray, k: int = 10) -> float:
+    """Packed recall@k of ``q`` against the exact top-k over the index's
+    live rows, on the card."""
+    st = index._impl._state
+    ids, _ = index.knn_query(q, k)
+    _, gt = exact_topk(st.vectors, q, k, st.active)
+    return recall_at_10(ids, gt)
+
+
+def edges_into_removed(st) -> int:
+    """Edges of live rows that point to inactive rows, over every layer."""
+    bad = 0
+    C = st.capacity
+    for layer in range(st.num_levels):
+        nbr = st.nbr0 if layer == 0 else st.nbru[layer - 1]
+        ok = nbr >= 0
+        tgt_live = st.active[nbr.long().clamp(0, C - 1)]
+        bad += int((ok & ~tgt_live & st.active[:, None]).sum())
+    return bad
+
+
+def churn_phases(index, vecs) -> dict:
+    """On the 1M index after its query phases: a bulk removal of 100,000
+    seeded ids (the entry point among them), a re-add of 10,000 fresh rows
+    into the freed slots, an update of 10,000 surviving rows, and packed
+    recall after the churn."""
+    import torch
+    from hnswindex_torch.core.remove import resolve_quality
+    from hnswindex_torch.ops import fused_scan as FS
+
+    impl = index._impl
+    n = vecs.shape[0]
+    rng = np.random.default_rng(SEED + 8)
+    drop = rng.choice(n, N_REMOVE, replace=False)
+    ep = int(impl._state.ep)
+    if ep not in drop:
+        drop[0] = ep
+    dropped = np.zeros(n, bool)
+    dropped[drop] = True
+    probe = rng.permutation(np.flatnonzero(~dropped))[:NQ_SMALL]
+    pre = live_recall(index, vecs[probe])
+
+    before = impl.timer.seconds()
+    (_, s) = timed_query(lambda: index.remove(drop))
+    after = impl.timer.seconds()
+    split = {k: after.get(k, 0.0) - before.get(k, 0.0)
+             for k in ("mark", "affected", "candidates", "repair")}
+    st = impl._state
+    print(f"removal: {N_REMOVE} ids (the entry point {ep} among them) in "
+          f"{s:.2f} s = {N_REMOVE / s:.1f} removals/s; phases "
+          + " ".join(f"{k}={v:.2f}s" for k, v in split.items()), flush=True)
+    if index.count != n - N_REMOVE or int(st.count) != n - N_REMOVE:
+        fail(f"removal: count {index.count} != {n - N_REMOVE}")
+    new_ep = int(st.ep)
+    if new_ep < 0 or not bool(st.active[new_ep]):
+        fail("removal: the entry point is not an active row")
+    bad = edges_into_removed(st)
+    if bad:
+        fail(f"removal: {bad} edges of live rows point to removed rows")
+    (qi, _), qs = timed_query(lambda: index.knn_query(vecs[:NQ], 10))
+    if np.isin(qi, drop).any():
+        fail("removal: a removed id came back from knn_query")
+    post = live_recall(index, vecs[probe])
+    ratio = post / pre
+    print(f"removal: recall@10 of {NQ_SMALL} surviving rows {pre:.4f} -> "
+          f"{post:.4f} (ratio {ratio:.4f}); {NQ} queries after it (pack "
+          f"rebuilt) {qs:.2f} s, no removed id returned", flush=True)
+    if ratio < 0.98:
+        fail(f"removal: post/pre recall ratio {ratio} < 0.98")
+    out = dict(removed=N_REMOVE, seconds=s, removals_per_s=N_REMOVE / s,
+               phases_s=split, recall_pre=pre, recall_post=post,
+               ratio=ratio, entry_point=new_ep)
+
+    # re-add: fresh rows take the freed slots, last freed first
+    fresh = (vecs[rng.choice(n, N_CHURN, replace=False)]
+             + 0.01 * rng.standard_normal((N_CHURN, D)).astype(np.float32))
+    expect = np.asarray(impl._free[::-1][:N_CHURN], np.int32)
+    FS.lane_min_scan.launches = 0
+    new_ids, s = timed_query(lambda: index.add(fresh))
+    launches = FS.lane_min_scan.launches
+    if not np.array_equal(new_ids, expect):
+        fail("re-add: the ids are not the freed slots in LIFO order")
+    found = index.knn_query(fresh, 1)[0][:, 0]
+    self_rec = float((found == new_ids).mean())
+    print(f"re-add: {N_CHURN} rows into freed slots in {s:.2f} s = "
+          f"{N_CHURN / s:.1f} inserts/s; recall@1 on themselves "
+          f"{self_rec:.4f}; lane_min_scan launches {launches}", flush=True)
+    if self_rec < 0.90 or launches <= 0:
+        fail(f"re-add: recall@1 {self_rec} or no lane-min launch")
+    out["readd"] = dict(inserts_per_s=N_CHURN / s, recall_at_1=self_rec,
+                        launches=launches)
+
+    # update: surviving rows move by the generator's own noise
+    live = np.flatnonzero(st.active.cpu().numpy())
+    upd = np.sort(rng.choice(live, N_CHURN, replace=False)).astype(np.int32)
+    moved = (impl._rows(upd)
+             + 0.03 * rng.standard_normal((N_CHURN, D)).astype(np.float32))
+    ids_before = index.ids()
+    inner = resolve_quality(impl.params.remove_quality, N_CHURN, index.count)
+    FS.lane_min_scan.launches = 0
+    _, s = timed_query(lambda: impl.update(upd, moved))
+    launches = FS.lane_min_scan.launches
+    if not np.array_equal(index.ids(), ids_before) or \
+            index.count != n - N_REMOVE + N_CHURN:
+        fail("update: the ids or the count changed")
+    items = index.items()
+    if not np.array_equal(items[np.searchsorted(ids_before, upd)], moved):
+        fail("update: items() does not show the new vectors")
+    # the moved rows sit on their clusters' rims (twice the generator's
+    # variance about the centre), where a beam as narrow as the default
+    # ef misses many: recall@1 is held to 0.85 at ef 64 (the unpacked
+    # phase's width) and printed at the other widths
+    rec1 = {}
+    keep = impl.params.min_nn
+    try:
+        for mn in (keep, 64, 256):
+            impl.params.min_nn = mn
+            found = index.knn_query(moved, 1)[0][:, 0]
+            rec1[mn] = float((found == upd).mean())
+    finally:
+        impl.params.min_nn = keep
+    print(f"update: {N_CHURN} rows in {s:.2f} s = {N_CHURN / s:.1f} rows/s "
+          f"(inner removal \"{inner}\"); recall@1 by the new vectors "
+          + ", ".join(f"{v:.4f} at min_nn={k}" for k, v in rec1.items())
+          + f"; lane_min_scan launches {launches}", flush=True)
+    if rec1[64] < 0.85 or launches <= 0:
+        fail(f"update: recall@1 {rec1[64]} at min_nn=64 or no lane-min "
+             "launch")
+    out["update"] = dict(rows_per_s=N_CHURN / s, recall_at_1=rec1,
+                         launches=launches, inner_quality=inner)
+
+    rec = live_recall(index, vecs[probe])
+    print(f"after the churn: packed recall@10 of {NQ_SMALL} live rows "
+          f"{rec:.4f}", flush=True)
+    if rec < 0.90:
+        fail(f"after the churn: recall@10 {rec} < 0.90")
+    out["recall_after_churn"] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def block_router_phase(vecs: np.ndarray, gt: np.ndarray,
+                       exact_qs: float) -> dict:
+    """BlockIndex(router="hnsw") on the 1M corpus: routed by a graph over
+    the centroids; then 10,000 rows added and 10,000 removed, after which
+    the router is rebuilt before the next query."""
+    import torch
+    import hnswindex_torch
+    from hnswindex_torch.ops import block_scores as TBS
+
+    n = vecs.shape[0]
+    bix = hnswindex_torch.BlockIndex(D, "sq_euclid", block_size=K2_BS,
+                                     router="hnsw", device="cuda")
+    TBS.block_scores.launches = 0
+    _, build_s = timed_query(lambda: bix.build(vecs))
+    bix.knn_query(vecs[:K2_B], 10, n_probe=K2_P)             # warm up
+    (qi, qd), s = timed_query(lambda: bix.knn_query(vecs[:NQ], 10,
+                                                    n_probe=K2_P))
+    check_answers("hnsw router", qi, qd, NQ, n)
+    recall = recall_at_10(qi[:1000], gt)
+    print(f"hnsw router: {n} rows in {bix.n_blocks} blocks, build (layout "
+          f"+ centroid graph of {bix._router_index.count}) {build_s:.2f} s; "
+          f"{NQ} x k=10 n_probe={K2_P} {NQ / s:.1f} q/s (exact router "
+          f"{exact_qs:.1f}); recall@10 {recall:.4f}", flush=True)
+    if recall < 0.90:
+        fail(f"hnsw router recall@10 {recall} < 0.90")
+
+    rng = np.random.default_rng(SEED + 9)
+    fresh = (vecs[rng.choice(n, N_CHURN, replace=False)]
+             + 0.01 * rng.standard_normal((N_CHURN, D)).astype(np.float32))
+    new_ids = bix.add(fresh)
+    drop = rng.choice(np.arange(NQ, n), N_CHURN, replace=False)
+    bix.remove(drop)
+    if not bix._router_dirty:
+        fail("hnsw router: churn did not mark the router for a rebuild")
+    (qi2, _), s2 = timed_query(lambda: bix.knn_query(vecs[:1000], 10,
+                                                     n_probe=K2_P))
+    live_blocks = int((bix._h_fill > 0).sum())
+    if bix._router_dirty or bix._router_index.count != live_blocks:
+        fail("hnsw router: not rebuilt over the live blocks")
+    alive = np.ones(n + N_CHURN, bool)
+    alive[drop] = False
+    both = torch.as_tensor(np.concatenate([vecs, fresh]), device="cuda")
+    _, gt2 = exact_topk(both, vecs[:1000], 10,
+                        torch.as_tensor(alive, device="cuda"))
+    recall2 = recall_at_10(qi2, gt2)
+    launches = TBS.block_scores.launches
+    print(f"hnsw router churn: add {N_CHURN} (ids from {new_ids.min()}), "
+          f"remove {N_CHURN}; router rebuilt over {live_blocks} live blocks "
+          f"with the next query ({s2:.2f} s for 1000 queries); recall@10 "
+          f"{recall2:.4f}; block_scores launches {launches}", flush=True)
+    if recall2 < 0.90:
+        fail(f"hnsw router recall@10 after churn {recall2} < 0.90")
+    if launches <= 0:
+        fail("the hnsw router path never launched the block-scores kernel")
+    return dict(build_s=build_s, queries_per_s=NQ / s, recall_at_10=recall,
+                recall_after_churn=recall2, launches=launches)
+
+
 def beam_build(vecs: np.ndarray) -> dict:
     """A 200,000-row build whose waves past 20,000 rows take the beam
     path; packed and unpacked k=10 recall against the exact top-10 within
@@ -841,6 +1169,9 @@ def main() -> int:
                  exact=exact_phase(index, vecs, gt, xd),
                  range=range_phase(index, vecs, xd),
                  multi_layer=multi_layer_phase(index, vecs))
+    # filters, then removal, re-add and update on the same index
+    filters = filter_phase(index, vecs, xd)
+    churn = churn_phases(index, vecs)
 
     # the main index (with its ~9 GB pack) makes room for the block paths
     del index, xd
@@ -848,12 +1179,15 @@ def main() -> int:
     beam = beam_build(vecs)
     torch.cuda.empty_cache()
     blockp = block_path(vecs, gt)
+    router = block_router_phase(vecs, gt, blockp["queries_per_s"])
+    torch.cuda.empty_cache()
     fallb = fallback_path(vecs)
 
     print(json.dumps({"summary": {
         "n": n, "build_s": build_s, "build_inserts_per_s": n / build_s,
         "phases_s": phases, "queries_per_s": qs, "recall_at_10": recall,
         "lane_min_scan_phases": k1, "graph_path": graph,
+        "filters": filters, "churn": churn, "hnsw_router": router,
         "beam_build": beam, "block_path": blockp, "fallback": fallb,
         "block_scores_phases": k2}}), flush=True)
     print(card, flush=True)
@@ -866,12 +1200,17 @@ def main() -> int:
          "replaces": "hnswindex_tpu/ops/fused_scan.py:85",
          "launches": launches,
          "launches_exact": graph["exact"]["launches"],
+         "launches_filtered_exact": filters["exact"]["launches"],
+         "launches_callable_exact": filters["callable exact"]["launches"],
+         "launches_readd": churn["readd"]["launches"],
+         "launches_update": churn["update"]["launches"],
          **{k: k_full[k] for k in keys}},
         {"name": "block_scores", "route": "cuda",
          "source": "hnswindex_torch/csrc/block_scores.cu",
          "replaces": "hnswindex_tpu/ops/pallas_block.py:84",
          "launches": blockp["launches"],
          "launches_fallback": fallb["launches"],
+         "launches_hnsw_router": router["launches"],
          **{k: k2m[k] for k in keys}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

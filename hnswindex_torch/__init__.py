@@ -5,12 +5,14 @@ is what this package is tested against).  It imports torch and numpy and
 never jax.  Two paths are ported.  The main path: ``add`` builds with
 wave-batched exact-candidate inserts, whose corpus scan runs the
 hand-written CUDA lane-min kernel (``csrc/fused_scan.cu``) on a CUDA
-device, and ``knn_query`` serves unfiltered layer-0 k-NN through the packed
-engine.  The block-serving path: :class:`BlockIndex` and the facade's
-at-scale fallback route a query to its nearest blocks and score them with
-the hand-written CUDA block-scoring kernel (``csrc/block_scores.cu``).
-Calls outside those slices raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+device, and ``knn_query`` serves layer-0 k-NN through the packed engine;
+the unpacked engine serves the other query paths, filters apply on every
+one, and ``remove``/``update`` repair the graph and reuse the slots.  The
+block-serving path: :class:`BlockIndex` and the facade's at-scale fallback
+route a query to its nearest blocks (exactly, or through a graph over the
+centroids) and score them with the hand-written CUDA block-scoring kernel
+(``csrc/block_scores.cu``).  Calls outside those slices raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Public API: :class:`Index` (drop-in for the reference bindings),
 :class:`HNSWIndex`, :class:`BlockIndex` and :class:`HNSWParameters`.

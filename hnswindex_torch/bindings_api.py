@@ -1,11 +1,11 @@
-"""`Index` — drop-in for the reference's Python bindings, main-path slice.
+"""`Index` — drop-in for the reference's Python bindings.
 
 Counterpart of ``hnswindex_tpu/bindings_api.py``: same constructor (plus
 the torch ``device``), same metric strings, lazy initialization on the
 first ``add``, setters that raise once the index is initialized, and the
 same array shapes and dtypes (``add`` -> int32 ids; ``knn_query`` -> (n, k)
-int32 ids and float32 distances, -1/NaN padded).  Entry points outside the
-slice raise ``NotImplementedError``.
+int32 ids and float32 distances, -1/NaN padded).  Entry points not ported
+yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

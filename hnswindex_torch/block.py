@@ -23,8 +23,9 @@ builds straight from its device-resident ranking table when the query pack
 does not fit its budget (bfloat16 tiles, or per-block-scaled int8 tiles
 when memory is short).
 
-``router="hnsw"`` (a centroid-level graph) needs the unpacked search and
-removal, which are not ported yet, and raises ``NotImplementedError``.
+``router="hnsw"`` routes through an ``HNSWIndex`` over the centroids (slot
+id = block number; empty blocks removed), rebuilt before the next query
+whenever a mutation touched the centroids.
 """
 
 from __future__ import annotations
@@ -421,11 +422,6 @@ class BlockIndex:
         dst.check_metric(metric)
         if router not in ("exact", "hnsw"):
             raise ValueError("router must be 'exact' or 'hnsw'")
-        if router == "hnsw":
-            raise NotImplementedError(
-                "BlockIndex(router='hnsw') is not ported to hnswindex_torch "
-                "yet: the centroid graph's upkeep needs remove (ROADMAP "
-                "queue 1 item 12 remainder, after item 10)")
         self.device = torch.device(device)
         _check_full_f32(self.device)
         self.dim = int(dim)
@@ -489,7 +485,28 @@ class BlockIndex:
         self.count = int(fill_mask.sum())
         self._built_count = max(1, self.count)
         self._open_dyn: list = []       # blocks opened by dynamic overflow
+        self._router_dirty = False
+        if self.router == "hnsw":
+            self._build_router()
         self._built = True
+
+    def _build_router(self) -> None:
+        """The centroid graph of ``router="hnsw"``: centroids are added in
+        block order, so slot id == block number; empty blocks get a far,
+        finite dummy (1e15 keeps float32 squared norms finite) and are
+        removed at once, so they are never routed to."""
+        from .index import HNSWIndex
+        p = HNSWParameters(collection_size=self.n_blocks,
+                           random_seed=self.params.random_seed)
+        self._router_index = HNSWIndex(self.dim, self.metric, p,
+                                       device=self.device)
+        cents = self._h_cents.copy()
+        cents[self._h_fill == 0] = np.float32(1e15)
+        self._router_index.add(cents)
+        dead = np.flatnonzero(self._h_fill == 0)
+        if dead.size:
+            self._router_index.remove(dead)
+        self._router_dirty = False
 
     # -- dynamics ---------------------------------------------------------
     #
@@ -529,6 +546,7 @@ class BlockIndex:
         self._cent_norms = dst.norm_data(self.metric, self._cents)
         self._cent_valid = self._blk_fill > 0
         self.n_blocks = self._h_ids.shape[0]
+        self._router_dirty = True
 
     def _touch_device(self, blocks) -> None:
         """Push the host rows of the touched blocks to the device tables,
@@ -543,6 +561,7 @@ class BlockIndex:
         self._cents[tbt] = self._to_dev(self._h_cents[tb])
         self._cent_norms = dst.norm_data(self.metric, self._cents)
         self._cent_valid = self._blk_fill > 0
+        self._router_dirty = True
 
     def _refresh_cent(self, b: int) -> None:
         f = int(self._h_fill[b])
@@ -713,13 +732,30 @@ class BlockIndex:
 
     # -- query -----------------------------------------------------------
 
+    def _route(self, q: torch.Tensor, n_probe: int) -> torch.Tensor:
+        """(B, n_probe) int32 block ids, nearest first (-1 pads): the exact
+        centroid scan, or a beam over the centroid graph (rebuilt first if a
+        mutation touched the centroids)."""
+        if self.router == "hnsw":
+            from .core.search import knn_search
+            if self._router_dirty:
+                self._build_router()
+            ri = self._router_index
+            expand = max(1, ri.params.query_expand)
+            ef = max(n_probe, ri.params.min_nn)
+            mi = (ri._cfg.search_iter_factor * ef) // expand + 16
+            _, bids = knn_search(ri._cfg, ri._state, q, 0, ef, mi,
+                                 expand=expand)
+            return bids[:, :n_probe].to(torch.int32).contiguous()
+        return _route_exact(self.metric, self._cents, self._cent_norms, q,
+                            n_probe, self._cent_valid)
+
     def query_device(self, q: torch.Tensor, k: int, n_probe: int = 32):
         """Device-level query: returns (dists, ids) device tensors without
         host-side refinement — the form benchmark loops want.  ``knn_query``
         wraps this with float64 refinement."""
         n_probe = min(n_probe, self.n_blocks)
-        bids = _route_exact(self.metric, self._cents, self._cent_norms, q,
-                            n_probe, self._cent_valid)
+        bids = self._route(q, n_probe)
         return _score_blocks_panel(self.metric, self._blk_vecs,
                                    self._blk_ids, self._blk_fill, q, bids, k)
 

@@ -62,12 +62,14 @@ def _phase(timer, name: str):
 
 
 def _prune_rows(cfg: GraphConfig, vectors, norms, target_ids, cand_ids,
-                mask, max_deg: int):
+                mask, max_deg: int, fill_to: int = 0):
     """Heuristic-prune candidate lists against their target nodes, with
     candidate->target distances (PruneOverflow's orientation,
     GraphConnector.cs:233).  ``target_ids (P,)``, ``cand_ids (P, NC)``
     (-1 invalid), ``mask (P,)`` gates rows.  Chunked over rows to bound the
-    (chunk, NC, D) gather.  Returns (sel (P, max_deg), count (P,))."""
+    (chunk, NC, D) gather.  ``fill_to`` tops under-connected rows up from
+    their rejected candidates (removal repair only; heuristic.prune).
+    Returns (sel (P, max_deg), count (P,))."""
     P, NC = cand_ids.shape
     C, D = vectors.shape
     row_bytes = NC * D * vectors.element_size()
@@ -85,7 +87,7 @@ def _prune_rows(cfg: GraphConfig, vectors, norms, target_ids, cand_ids,
         cd = torch.where((cic >= 0) & mkc[:, None], cd, _INF)
         sel, cnt = heuristic.prune(cfg.metric,
                                    torch.where(mkc[:, None], cic, -1),
-                                   cd, cvecs, cn, max_deg)
+                                   cd, cvecs, cn, max_deg, fill_to=fill_to)
         sels.append(sel)
         cnts.append(cnt)
     return torch.cat(sels, dim=0), torch.cat(cnts, dim=0)

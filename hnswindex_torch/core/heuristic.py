@@ -11,7 +11,8 @@ Counterpart of ``hnswindex_tpu/core/heuristic.py``: the reference's
 The O(N^2) candidate distances are one batched product; the sequential
 accept is a scan over the sorted candidate columns.  The reference permutes
 its conflict tensor with one-hot bf16 products because TPU gathers are
-slow; here it is two exact ``torch.gather`` calls.
+slow; here the candidates are gathered in sorted order before the product,
+which gives the same products in sorted positions.
 """
 
 from __future__ import annotations
@@ -25,9 +26,14 @@ def _accept_scan(conflict: torch.Tensor) -> torch.Tensor:
     """Exact sequential accept over sorted candidate columns:
     ``conflict[b, s, c]`` says earlier candidate s blocks c if s is
     accepted.  Column c is accepted iff no accepted s < c conflicts."""
-    B, N, _ = conflict.shape
-    by_col = conflict.transpose(1, 2).contiguous()          # (B, c, s)
-    acc = torch.zeros((B, N), dtype=torch.bool, device=conflict.device)
+    return _accept_cols(conflict.transpose(1, 2).contiguous())
+
+
+def _accept_cols(by_col: torch.Tensor) -> torch.Tensor:
+    """_accept_scan on the conflict tensor laid out by column:
+    ``by_col[b, c, s]``."""
+    B, N, _ = by_col.shape
+    acc = torch.zeros((B, N), dtype=torch.bool, device=by_col.device)
     for c in range(N):
         acc[:, c] = ~torch.any(by_col[:, c, :c] & acc[:, :c], dim=1)
     return acc
@@ -59,23 +65,26 @@ def prune(metric: str,
     order = torch.argsort(d, dim=1, stable=True)
     sid = torch.gather(cand_ids, 1, order)
     svalid = torch.gather(valid, 1, order)
+    sd = torch.gather(d, 1, order)
 
-    cv = cand_vecs.float()
+    # pairwise distances among the candidates, taken in sorted order: each
+    # product is the same dot of the same two rows as in the unsorted
+    # order, and the table is symmetric, so by_col[b, c, s] = conflict of
+    # earlier s against c = pd[c, s] < d(c, target)
+    cv = torch.gather(cand_vecs.float(), 1,
+                      order[:, :, None].expand(B, N, cand_vecs.shape[2]))
+    sn = torch.gather(cand_norms, 1, order)
     dots = torch.bmm(cv, cv.transpose(1, 2))
-    pd = dst.from_dot(metric, dots, cand_norms[:, :, None],
-                      cand_norms[:, None, :])
+    pd = dst.from_dot(metric, dots, sn[:, :, None], sn[:, None, :])
 
     n_valid = svalid.sum(dim=1)
     keep_all = n_valid < max_edges
 
-    conflict_u = (pd < d[:, None, :]) & valid[:, :, None] & valid[:, None, :]
-    # sorted order: cs[p, i, j] = conflict_u[p, order[p, i], order[p, j]]
-    cs = torch.gather(conflict_u, 1, order[:, :, None].expand(B, N, N))
-    cs = torch.gather(cs, 2, order[:, None, :].expand(B, N, N))
     ar = torch.arange(N, device=dev)
-    conflict = (ar[:, None] < ar[None, :])[None] & cs
+    by_col = ((ar[None, :] < ar[:, None])[None] & (pd < sd[:, :, None])
+              & svalid[:, :, None] & svalid[:, None, :])
 
-    accepted = _accept_scan(conflict) & svalid
+    accepted = _accept_cols(by_col) & svalid
     accepted = torch.where(keep_all[:, None], svalid, accepted)
     accepted = accepted & (torch.cumsum(accepted, dim=1) <= max_edges)
     count = accepted.sum(dim=1)

@@ -16,8 +16,8 @@ layer-0 neighbourhood out contiguously so one expansion is one tile fetch:
   most ``ENTRY_SCAN_MAX``, scored exactly against each query in place of
   the upper-layer greedy descent.
 
-Only the unfiltered built-in-metric branch of ``packed_knn_search`` is
-ported; filtered and custom-metric search raise.
+``packed_knn_search`` serves unfiltered and mask-filtered queries for the
+built-in metrics; the custom-metric branch comes with ``register_metric``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,15 @@ _INF = float("inf")
 
 #: Largest compacted entry set the flat entry scan takes on.
 ENTRY_SCAN_MAX = 131072
+
+#: Entry-set cap for custom metrics, whose entry scan is elementwise (no
+#: matmul): the pack enters one level higher up the hierarchy.
+ENTRY_SCAN_MAX_CUSTOM = 8192
+
+
+def entry_scan_cap(metric: str) -> int:
+    return ENTRY_SCAN_MAX_CUSTOM if dst.is_custom(metric) \
+        else ENTRY_SCAN_MAX
 
 #: Row chunk for the pack build (bounds the f32 gather intermediate).
 _BUILD_CHUNK = 1 << 16
@@ -116,12 +125,10 @@ def packed_knn_search(cfg: GraphConfig, pack: QueryPack, q: torch.Tensor,
     """Layer-0 k-NN over the packed layout (KnnQuery semantics,
     HNSWIndex.cs:107-123, with the entry descent replaced by the flat
     scan).  Each step expands each query's ``expand`` closest unexpanded
-    pool entries.  Returns (dists (B, ef), ids (B, ef)) ascending,
-    -1/inf padded; distances are rank distances that callers refine."""
-    if filtered:
-        raise NotImplementedError(
-            "filtered packed search is not ported yet (ROADMAP queue 1 "
-            "item 9)")
+    pool entries.  ``filtered`` with a (C,) bool ``filter_mask`` returns a
+    second pool that keeps only allowed ids (filtered-out nodes still steer
+    the walk).  Returns (dists (B, ef), ids (B, ef)) ascending, -1/inf
+    padded; distances are rank distances that callers refine."""
     B = q.shape[0]
     C, K = pack.nbr0.shape
     dev = q.device
@@ -142,6 +149,12 @@ def packed_knn_search(cfg: GraphConfig, pack: QueryPack, q: torch.Tensor,
     bd[:, :R] = ed[:, :R]
     bi[:, :R] = eid[:, :R]
     bx = torch.zeros((B, ef), dtype=torch.int32, device=dev)
+    if filtered:
+        allow0 = filter_mask[eid.clamp(0, C - 1)] & (eid >= 0)
+        rd = torch.full((B, ef), _INF, dtype=torch.float32, device=dev)
+        ri = torch.full((B, ef), -1, dtype=torch.int64, device=dev)
+        rd[:, :R] = torch.where(allow0, ed, _INF)[:, :R]
+        ri[:, :R] = torch.where(allow0, eid, -1)[:, :R]
 
     # the query at the residual precision, widened for an f32 product
     qh16 = qh.to(pack.res.dtype).float()
@@ -179,9 +192,20 @@ def packed_knn_search(cfg: GraphConfig, pack: QueryPack, q: torch.Tensor,
         nd = torch.where(fresh, nd, _INF)
         nid = torch.where(fresh, nb, -1)
 
+        zeros = torch.zeros_like(nid, dtype=torch.int32)
         bd, bi, bx = _merge_pool(torch.cat([bd, nd], dim=1),
                                  torch.cat([bi, nid], dim=1),
-                                 torch.cat([bx, torch.zeros_like(nid,
-                                            dtype=torch.int32)], dim=1),
-                                 ef)
+                                 torch.cat([bx, zeros], dim=1), ef)
+        if filtered:
+            # a node evicted from the walk's pool and met again is fresh
+            # there, but may still be in the result pool
+            in_res = torch.any(nid[:, :, None] == ri[:, None, :], dim=2)
+            allow = filter_mask[nid.clamp(0, C - 1)] & fresh & ~in_res
+            rd, ri, _ = _merge_pool(
+                torch.cat([rd, torch.where(allow, nd, _INF)], dim=1),
+                torch.cat([ri, torch.where(allow, nid, -1)], dim=1),
+                torch.cat([torch.zeros_like(ri, dtype=torch.int32), zeros],
+                          dim=1), ef)
+    if filtered:
+        return rd, ri
     return bd, bi

@@ -180,7 +180,10 @@ def beam_search(cfg: GraphConfig, state: GraphState, q, qn, ep, ep_ok,
                                  torch.cat([bi, nid], dim=1),
                                  torch.cat([bx, zeros], dim=1), ef)
         if filtered:
-            allow = filter_mask[nid.clamp(0, C - 1)] & fresh
+            # a node evicted from the walk's pool and met again is fresh
+            # there, but may still be in the result pool
+            in_res = torch.any(nid[:, :, None] == ri[:, None, :], dim=2)
+            allow = filter_mask[nid.clamp(0, C - 1)] & fresh & ~in_res
             rd, ri, _ = _merge_pool(
                 torch.cat([rd, torch.where(allow, nd, _INF)], dim=1),
                 torch.cat([ri, torch.where(allow, nid, -1)], dim=1),
@@ -192,7 +195,8 @@ def beam_search(cfg: GraphConfig, state: GraphState, q, qn, ep, ep_ok,
 
 
 def range_search(cfg: GraphConfig, state: GraphState, q, qn, ep, ep_ok,
-                 layer: int, radius: float, pool: int, max_iters: int):
+                 layer: int, radius: float, pool: int, max_iters: int,
+                 filtered: bool = False, filter_mask=None):
     """All nodes within ``radius`` reachable through in-radius nodes
     (SearchLayerRange, GraphNavigator.cs:262-325): only neighbours with
     d <= radius join the pool (:303), and every pool entry is expanded,
@@ -203,8 +207,9 @@ def range_search(cfg: GraphConfig, state: GraphState, q, qn, ep, ep_ok,
     nodes are reached too).  Returns (dists (B, pool), ids (B, pool),
     saturated (B,) bool); ``saturated`` is ``n_occ + E >= pool``: the pool
     could have evicted an unexpanded seed, so the caller retries wider.
-    The reference's ``filtered`` result comes with the facade's filters
-    (ROADMAP queue 1 item 9)."""
+    ``filtered`` with a (C,) bool ``filter_mask`` drops disallowed ids from
+    the result after the walk (they still steer it and still count towards
+    ``saturated``)."""
     B = q.shape[0]
     C = state.capacity
     dev = q.device
@@ -251,6 +256,8 @@ def range_search(cfg: GraphConfig, state: GraphState, q, qn, ep, ep_ok,
     # the E seed slots count too: an out-of-range seed evicted before its
     # expansion would have lost its in-range pocket
     saturated = ok.sum(dim=1) + E >= pool
+    if filtered:
+        ok = ok & filter_mask[bi.clamp(0, C - 1)]
     return torch.where(ok, bd, _INF), torch.where(ok, bi, -1), saturated
 
 

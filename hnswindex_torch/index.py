@@ -9,14 +9,17 @@ built on the device when the pack does not fit ``pack_max_bytes``
 (block.py, the at-scale fallback), and by the unpacked graph search
 (core/search.py) otherwise; ``layer > 0``, ``range_query`` and
 ``multi_layer_knn_query`` use the unpacked search, ``exact=True`` the
-two-stage brute-force scan (ops/bruteforce.py).  Returned pairs are
-refined in full precision.
+two-stage brute-force scan (ops/bruteforce.py).  A filter is an id list or
+a (C,) bool mask, applied on every path, or a callable evaluated on
+candidates only.  Returned pairs are refined in full precision.  ``remove``
+repairs the graph (core/remove.py) and frees the slots for reuse;
+``update`` is a remove and a reinsert into the same slots.
 
-The device owns the graph state; the host owns slot allocation, level
-sampling (numpy RNG, seeded exactly like the reference), capacity growth
-and the wave schedule.  What is not ported yet (filters, removal, update,
-stats, snapshots) raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+The device owns the graph state; the host owns slot allocation and the free
+list, level sampling (numpy RNG, seeded exactly like the reference),
+capacity growth and the wave schedule.  What is not ported yet (custom
+metrics, stats, snapshots) raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from .core import construct as CS
 from .core import graph as G
 from .core import pack as PK
+from .core import remove as RM
 from .core import search as SR
 from .ops import bruteforce as BF
 from .ops import distance as dst
@@ -171,13 +175,18 @@ class HNSWIndex:
         seed = p.random_seed if p.random_seed >= 0 else None
         self._rng = np.random.default_rng(seed)
         self._length = 0             # high-water slot mark (GraphData.cs:25)
+        self._free: List[int] = []   # freed slots, reused last-in first-out
         self._count_host = 0         # host mirror of state.count
         self._pack = None            # lazily built QueryPack
         self._pack_refusal = ""      # why _get_pack last returned None
         self._block_fb = None        # lazily built DeviceBlockTables
         self._host_vectors: Optional[np.ndarray] = None
-        # upper-node panel: ids of every node with level >= 1
+        # upper-node panel: ids of every live node with level >= 1, in
+        # insertion order, with -1 holes where removed ids were
         self._upper_np = np.empty(0, np.int32)
+        self._upper_pos: dict = {}   # id -> position in the panel
+        self._upper_cnt = 0          # positions used (holes included)
+        self._upper_holes = 0
         self._upper_ids: Optional[torch.Tensor] = None
         self._scan_hwm = 0           # 1 + highest slot ever activated
         #: per-phase build times (scan, prune, reverse, upper, ...)
@@ -204,11 +213,19 @@ class HNSWIndex:
         self._state = G.grow_state(self._state, newC)
 
     def _alloc_slots(self, n: int) -> np.ndarray:
-        """Fresh slots at the high-water mark (no removals: no free list)."""
-        self._grow_to(self._length + n)
-        slots = np.arange(self._length, self._length + n, dtype=np.int32)
-        self._length += n
-        return slots
+        """Freed slots first (last freed, first reused; only while removals
+        are enabled, GraphData.cs:85-91), then fresh ones at the high-water
+        mark."""
+        slots: List[int] = []
+        if self.params.allow_removals:
+            while self._free and len(slots) < n:
+                slots.append(self._free.pop())
+        fresh = n - len(slots)
+        if fresh:
+            self._grow_to(self._length + fresh)
+            slots.extend(range(self._length, self._length + fresh))
+            self._length += fresh
+        return np.asarray(slots, dtype=np.int32)
 
     def add(self, vecs) -> np.ndarray:
         """Insert a batch; returns the assigned int32 ids
@@ -226,8 +243,9 @@ class HNSWIndex:
 
     def _insert_batch(self, ids: np.ndarray, a: np.ndarray,
                       lvls: np.ndarray) -> None:
-        """Seed the first node as the edgeless entry point
-        (GraphConnector.cs:27-33), then insert waves under the reference's
+        """Shared by ``add`` and ``update``.  Seed the first node as the
+        edgeless entry point (GraphConnector.cs:27-33; also after every row
+        was removed), then insert waves under the reference's
         schedule: ``w = min(max_wave, 4096, max(1, built), remaining)``,
         cut so that at most MAX_UPPER level>=1 members share a wave."""
         n = ids.shape[0]
@@ -295,16 +313,113 @@ class HNSWIndex:
         CS.base_connect_exact(cfg, st, wid, wlvl, nscan=nscan, scan2=full,
                               prefix=self._scan_hwm, timer=self.timer)
 
+    # -- upper-node panel: the reference's layout (positions in insertion
+    # order, holes where ids were removed, compaction once holes pass half
+    # the panel), so both packages scan the same panel.  The host owns
+    # membership; the device holds a copy.
+
+    def _panel_push(self) -> None:
+        self._upper_ids = torch.tensor(self._upper_np, device=self.device)
+
+    def _panel_compact(self) -> None:
+        ids = np.fromiter(self._upper_pos.keys(), np.int32,
+                          len(self._upper_pos))
+        self._upper_pos = {int(x): i for i, x in enumerate(ids)}
+        self._upper_cnt = int(ids.size)
+        self._upper_holes = 0
+        self._upper_np = np.full(
+            max(_PANEL_MIN_CAP, _next_pow2(max(1, ids.size))), -1, np.int32)
+        self._upper_np[:ids.size] = ids
+
     def _panel_append(self, ids: np.ndarray) -> None:
-        """Record newly inserted level>=1 node ids in the upper panel."""
-        if ids.size == 0 and self._upper_ids is not None:
+        """Record newly inserted level>=1 node ids; an id already listed is
+        not listed twice."""
+        if ids.size and self._upper_pos:
+            ids = ids[[int(x) not in self._upper_pos for x in ids]]
+        n = int(ids.size)
+        if n == 0:
             return
-        self._upper_np = np.concatenate([self._upper_np,
-                                         ids.astype(np.int32)])
-        cap = max(_PANEL_MIN_CAP, _next_pow2(max(1, self._upper_np.size)))
-        arr = np.full(cap, -1, np.int32)
-        arr[:self._upper_np.size] = self._upper_np
-        self._upper_ids = torch.as_tensor(arr).to(self.device)
+        if self._upper_holes > max(1024, self._upper_cnt // 2):
+            self._panel_compact()
+        need = self._upper_cnt + n
+        if need > self._upper_np.size:
+            arr = np.full(max(_PANEL_MIN_CAP, _next_pow2(need)), -1,
+                          np.int32)
+            arr[:self._upper_cnt] = self._upper_np[:self._upper_cnt]
+            self._upper_np = arr
+        self._upper_np[self._upper_cnt:need] = ids
+        for p, x in enumerate(ids.tolist(), start=self._upper_cnt):
+            self._upper_pos[int(x)] = p
+        self._upper_cnt = need
+        self._panel_push()
+
+    def _panel_remove(self, ids: np.ndarray) -> None:
+        dead = [self._upper_pos.pop(int(x)) for x in ids
+                if int(x) in self._upper_pos]
+        if not dead:
+            return
+        self._upper_np[dead] = -1
+        self._upper_holes += len(dead)
+        self._panel_push()
+
+    # ------------------------------------------------------------------
+    # removal
+    # ------------------------------------------------------------------
+
+    def remove(self, ids) -> None:
+        """Remove a batch by id with graph repair (HNSWIndex.cs:83-100).
+        Out-of-range and inactive ids are ignored, repeated ids count once;
+        the freed slots are reused by later adds, last freed first."""
+        if not self.params.allow_removals:
+            raise RuntimeError("Removals are disabled in this index "
+                               "instance.")
+        arr = np.asarray(ids, dtype=np.int64).ravel()
+        if arr.size == 0:
+            return
+        active = self._state.active.cpu().numpy()
+        arr = arr[(arr >= 0) & (arr < active.shape[0])]
+        arr = np.unique(arr[active[arr]]).astype(np.int32)
+        if arr.size == 0:
+            return
+        self._invalidate_caches()
+        with self.timer.phase("remove"):
+            RM.remove_from_state(
+                self._cfg, self._state, arr,
+                self.params.remove_max_candidates, scan_hwm=self._scan_hwm,
+                quality=RM.resolve_quality(self.params.remove_quality,
+                                           arr.size, self._count_host),
+                timer=self.timer)
+        self._free.extend(int(x) for x in arr)
+        self._count_host -= int(arr.size)
+        self._panel_remove(arr)
+
+    def update(self, ids, vecs) -> None:
+        """Replace stored vectors in place, keeping their ids (the reference's
+        GraphData.UpdateItem, GraphData.cs:133-140): remove, then reinsert
+        into the same slots with fresh levels and edges."""
+        arr = np.asarray(ids, dtype=np.int64).ravel()
+        a = _as_2d_f32(vecs, self.dim)
+        if arr.size != a.shape[0]:
+            raise ValueError("ids and vectors must have matching length")
+        if arr.size == 0:
+            return
+        if not self.params.allow_removals:
+            raise RuntimeError("update requires allow_removals=True")
+        if np.unique(arr).size != arr.size:
+            raise ValueError("update ids must be unique")
+        active = self._state.active.cpu().numpy()
+        bad = (arr < 0) | (arr >= active.shape[0])
+        if bad.any() or not active[arr].all():
+            raise ValueError("update ids must all be active")
+        arr = arr.astype(np.int32)
+        self.remove(arr)
+        self._invalidate_caches()
+        freed = {int(x) for x in arr}
+        self._free = [x for x in self._free if x not in freed]
+        lvls = G.sample_levels(self._rng, arr.size,
+                               self.params.distribution_rate,
+                               self._cfg.max_levels)
+        self._insert_batch(arr, a, lvls)
 
     # ------------------------------------------------------------------
     # queries
@@ -323,8 +438,9 @@ class HNSWIndex:
         """The packed-neighbourhood tables, built on first use.  None means
         "serve unpacked", and ``_pack_refusal`` says why: "disabled"
         (``pack_queries="off"``), "too_small" (under ``pack_min_count`` in
-        "auto") or "budget" (past ``pack_max_bytes``, which the block
-        fallback gates on)."""
+        "auto"), "budget" (past ``pack_max_bytes``, which the block
+        fallback gates on) or "no_entry" (no entry point: every row was
+        removed)."""
         p = self.params
         if p.pack_queries == "off":
             self._pack_refusal = "disabled"
@@ -344,13 +460,18 @@ class HNSWIndex:
         lvl = self._state.level.cpu().numpy()
         act = self._state.active.cpu().numpy()
         eids = None
+        cap = PK.entry_scan_cap(self.metric)
         for layer in range(1, self._state.num_levels):
             members = np.flatnonzero((lvl >= layer) & act)
-            if members.size <= PK.ENTRY_SCAN_MAX:
+            if members.size <= cap:
                 eids = members
                 break
         if eids is None or eids.size == 0:
-            eids = np.asarray([int(self._state.ep)])
+            ep = int(self._state.ep)
+            if ep < 0:
+                self._pack_refusal = "no_entry"
+                return None
+            eids = np.asarray([ep])
         S = 1 << max(0, int(eids.size - 1).bit_length())
         padded = np.full(S, -1, np.int32)
         padded[:eids.size] = eids
@@ -427,6 +548,38 @@ class HNSWIndex:
                                                     ids.cpu().numpy(), k)
         return out_ids, out_d
 
+    def _build_filter_mask(self, filter_fnc) -> Optional[torch.Tensor]:
+        """(C,) bool device mask from an id list or a (C,) bool array
+        (callables never come here: they are evaluated on candidates
+        only)."""
+        if filter_fnc is None:
+            return None
+        C = self._state.capacity
+        mask = np.asarray(filter_fnc, dtype=bool)
+        if mask.shape != (C,):
+            mask = np.zeros(C, dtype=bool)
+            mask[np.asarray(filter_fnc, dtype=np.int64)] = True
+        return torch.as_tensor(mask).to(self.device)
+
+    def _rows(self, ids) -> np.ndarray:
+        """Stored vectors of a (small) id set: the host mirror when it is
+        affordable, a device gather otherwise."""
+        idc = np.clip(np.asarray(ids, np.int64), 0, self._state.capacity - 1)
+        if self._mirrorable():
+            return self._host_vecs()[idc]
+        return self._state.vectors[torch.as_tensor(idc).to(
+            self.device)].cpu().numpy()
+
+    def _refine_batched(self, q: np.ndarray, ids: np.ndarray, k: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        n = q.shape[0]
+        out_ids = np.empty((n, k), np.int32)
+        out_d = np.empty((n, k), np.float32)
+        for i in range(0, n, QUERY_BATCH):
+            j = min(n, i + QUERY_BATCH)
+            out_ids[i:j], out_d[i:j] = self._refine(q[i:j], ids[i:j], k)
+        return out_ids, out_d
+
     def _refine(self, q: np.ndarray, ids: np.ndarray, k: int
                 ) -> Tuple[np.ndarray, np.ndarray]:
         """Recompute returned distances with the direct formula and re-sort:
@@ -443,34 +596,33 @@ class HNSWIndex:
         """Batched k-NN at ``layer`` (HNSWIndex.cs:107-137).  Returns
         (ids (n, k) int32, dists (n, k) float32), -1/NaN padded.
         ``exact=True`` scans the whole corpus (ops/bruteforce.exact_knn2);
-        at ``layer > 0`` only rows of level >= layer are candidates."""
-        if filter_fnc is not None:
-            raise _todo("filtered knn_query", "queue 1 item 9")
+        at ``layer > 0`` only rows of level >= layer are candidates.
+        ``filter_fnc`` is an id list or (C,) bool mask of the allowed ids,
+        or a callable on a stored vector (``_knn_query_callable``)."""
         q = _as_2d_f32(queries, self.dim)
         n = q.shape[0]
         if self._count_host <= 0 or k < 1:
             return (np.full((n, k), -1, np.int32),
                     np.full((n, k), np.nan, np.float32))
+        if callable(filter_fnc):
+            return self._knn_query_callable(q, k, filter_fnc, layer, exact)
+        fmask = self._build_filter_mask(filter_fnc)
         if exact:
-            return self._exact_query(q, k, layer)
+            return self._refine_batched(
+                q, self._exact_ids(q, k, layer, fmask), k)
         ef = max(self.params.min_nn, k)          # HNSWIndex.cs:115
-        if layer == 0:
+        if layer == 0 and fmask is None:
             fb = self._get_block_fallback()
             if fb is not None:
                 return self._block_fallback_query(fb, q, k)
-        ids = self._search_ids(q, ef, layer)
-        out_ids = np.empty((n, k), np.int32)
-        out_d = np.empty((n, k), np.float32)
-        for i in range(0, n, QUERY_BATCH):
-            j = min(n, i + QUERY_BATCH)
-            out_ids[i:j], out_d[i:j] = self._refine(q[i:j], ids[i:j], k)
-        return out_ids, out_d
+        return self._refine_batched(q, self._search_ids(q, ef, layer, fmask),
+                                    k)
 
-    def _search_ids(self, q: np.ndarray, ef: int, layer: int = 0
-                    ) -> np.ndarray:
+    def _search_ids(self, q: np.ndarray, ef: int, layer: int = 0,
+                    fmask: Optional[torch.Tensor] = None) -> np.ndarray:
         """Graph search in batches: the pack at layer 0 when there is one,
-        the unpacked descent + beam otherwise.  Returns (n, ef) candidate
-        ids."""
+        the unpacked descent + beam otherwise; with ``fmask`` the pool of
+        allowed ids.  Returns (n, ef) candidate ids."""
         expand = max(1, self.params.query_expand)
         max_iters = (self._cfg.search_iter_factor * ef) // expand + 16
         pk = self._get_pack() if layer == 0 else None
@@ -480,40 +632,127 @@ class HNSWIndex:
             j = min(n, i + QUERY_BATCH)
             qt = torch.as_tensor(q[i:j]).to(self.device)
             if pk is not None:
-                _, ids = PK.packed_knn_search(self._cfg, pk, qt, ef,
-                                              max_iters, expand=expand,
-                                              n_entry=min(8, ef))
+                _, ids = PK.packed_knn_search(
+                    self._cfg, pk, qt, ef, max_iters,
+                    filtered=fmask is not None, filter_mask=fmask,
+                    expand=expand, n_entry=min(8, ef))
             else:
-                _, ids = SR.knn_search(self._cfg, self._state, qt, layer,
-                                       ef, max_iters, expand=expand)
+                _, ids = SR.knn_search(
+                    self._cfg, self._state, qt, layer, ef, max_iters,
+                    filtered=fmask is not None, filter_mask=fmask,
+                    expand=expand)
             out[i:j] = ids.cpu().numpy()
         return out
 
-    def _exact_query(self, q: np.ndarray, k: int, layer: int
-                     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Brute-force k-NN over the allowed rows (active, and of level >=
-        ``layer``): the two-stage scan over the coarse table at EXACT_LANES
-        lanes (reference ``_exact_query``), refined like the graph path."""
+    def _knn_query_callable(self, q: np.ndarray, k: int, pred, layer: int,
+                            exact: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """Callable filters (HNSWIndex.cs:111-117): search unfiltered with a
+        widening beam and evaluate the predicate on returned candidates only
+        (the reference evaluates it on visited nodes, GraphNavigator.cs:
+        235-239; never a sweep of the corpus).  A query short of k passing
+        results widens ``ef`` x4 up to ``min(4096, next_pow2(count))``; once
+        the beams are saturated there, the queries still short get one exact
+        top-``ef`` scan before they are finalized.  Each round's finished
+        queries are refined in one batch.  Verdicts live in a table over the
+        slots, so each id is judged once a call."""
+        from .utils.predicates import BatchedPredicate
+
+        n = q.shape[0]
+        C = self._state.capacity
+        out_ids = np.full((n, k), -1, np.int32)
+        out_d = np.full((n, k), np.nan, np.float32)
+        judged = np.zeros(C, dtype=bool)
+        passes = np.zeros(C, dtype=bool)
+        bpred = pred if isinstance(pred, BatchedPredicate) \
+            else BatchedPredicate(pred)
+
+        pending = np.arange(n)
+        ef = max(self.params.min_nn, 2 * k, 16)
+        cap = min(4096, _next_pow2(max(self._count_host, 1)))
+        mode_exact = exact
+        can_escalate = not exact
+        while pending.size:
+            sub = q[pending]
+            if mode_exact:
+                ids = self._exact_ids(sub, min(ef, max(self._count_host, 1)),
+                                      layer, None, scan2_max=256)
+            else:
+                ids = self._search_ids(sub, ef, layer)
+            flat = np.unique(ids[ids >= 0])
+            fresh = flat[~judged[flat]]
+            if fresh.size:
+                passes[fresh] = bpred(self._rows(fresh))
+                judged[fresh] = True
+            saturated = ef >= cap
+            done, got, still = [], [], []
+            for r, qi in enumerate(pending):
+                row = ids[r]
+                keep = row[(row >= 0) & passes[np.clip(row, 0, C - 1)]]
+                starved = (row >= 0).sum() < ids.shape[1]
+                if keep.size >= k or starved or \
+                        (saturated and not can_escalate):
+                    done.append(qi)
+                    got.append(keep[:k])
+                else:
+                    still.append(qi)
+            if done:
+                rows = np.full((len(done), k), -1, np.int32)
+                for r, keep in enumerate(got):
+                    rows[r, :keep.size] = keep
+                qs = np.asarray(done, np.int64)
+                out_ids[qs], out_d[qs] = self._refine(q[qs], rows, k)
+            pending = np.asarray(still, dtype=np.int64)
+            if saturated and can_escalate and pending.size:
+                mode_exact, can_escalate = True, False
+            else:
+                ef = min(cap, ef * 4)
+        return out_ids, out_d
+
+    def _exact_ids(self, q: np.ndarray, k: int, layer: int,
+                   fmask: Optional[torch.Tensor],
+                   scan2_max: Optional[int] = None) -> np.ndarray:
+        """(n, k) ids of the brute-force top-k over the allowed rows
+        (active, of level >= ``layer``, in ``fmask``; reference
+        ``_exact_query``): the two-stage scan over the coarse table at
+        EXACT_LANES lanes while there is one (and ``k <= scan2_max``), the
+        blocked float32 scan otherwise."""
         st = self._state
         allowed = st.active
         if layer > 0:
             allowed = allowed & (st.level >= layer)
+        if fmask is not None:
+            allowed = allowed & fmask
         ct = st.coarse_table
+        two_stage = ct is not None and (scan2_max is None or k <= scan2_max)
         n = q.shape[0]
-        out_ids = np.empty((n, k), np.int32)
-        out_d = np.empty((n, k), np.float32)
+        out = np.empty((n, k), np.int32)
         for i in range(0, n, QUERY_BATCH):
             j = min(n, i + QUERY_BATCH)
             qt = torch.as_tensor(q[i:j]).to(self.device)
-            if ct is not None:
+            if two_stage:
                 _, ids = BF.exact_knn2(self.metric, st.vectors, ct, st.norms,
                                        allowed, qt, k, lanes=EXACT_LANES)
             else:
-                _, ids = BF.exact_knn(self.metric, st.vectors, st.norms,
+                _, ids = BF.exact_knn(self.metric, st.vlo, st.norms,
                                       allowed, qt, k)
-            out_ids[i:j], out_d[i:j] = self._refine(q[i:j],
-                                                    ids.cpu().numpy(), k)
-        return out_ids, out_d
+            out[i:j] = ids.cpu().numpy()
+        return out
+
+    def knn_query_results(self, query, k: int, filter_fnc=None,
+                          layer: int = 0):
+        """Single-query k-NN as ``KNNResult`` records (id, stored vector,
+        distance; the reference's List<KNNResult>, HNSWIndex.cs:107-123)."""
+        from .results import KNNResult
+        ids, dists = self.knn_query(query, k, filter_fnc=filter_fnc,
+                                    layer=layer)
+        labels = self._rows(np.clip(ids[0], 0, None))
+        out = []
+        for j, (i, d) in enumerate(zip(ids[0], dists[0])):
+            if i < 0:
+                break
+            out.append(KNNResult(id=int(i), label=labels[j].copy(),
+                                 distance=float(d)))
+        return out
 
     def range_query(self, queries, radius: float, filter_fnc=None,
                     layer: int = 0) -> Tuple[List[np.ndarray],
@@ -524,14 +763,16 @@ class HNSWIndex:
         One exact count of in-radius rows (ops/bruteforce.range_count)
         sizes each batch's result pool from RANGE_POOLS; queries whose
         count (plus the RANGE_SEED_EF seeds) reaches the top pool, and
-        queries still saturated at it, are answered by an exact scan."""
-        if filter_fnc is not None:
-            raise _todo("filtered range_query", "queue 1 item 9")
+        queries still saturated at it, are answered by an exact scan.  An
+        id-list or mask filter applies on both paths; a callable is
+        evaluated once per distinct result row."""
         q = _as_2d_f32(queries, self.dim)
         n = q.shape[0]
         if self._count_host <= 0:
             return ([np.empty(0, np.int32) for _ in range(n)],
                     [np.empty(0, np.float32) for _ in range(n)])
+        pred = filter_fnc if callable(filter_fnc) else None
+        fmask = None if pred else self._build_filter_mask(filter_fnc)
         st = self._state
         r32 = float(np.float32(radius))
         counts = np.empty(n, np.int64)
@@ -547,7 +788,8 @@ class HNSWIndex:
         # seeds, which are expanded once to reach disconnected pockets
         is_exact = counts + RANGE_SEED_EF >= RANGE_POOLS[-1]
         for i in np.flatnonzero(is_exact):
-            ids_out[i], d_out[i] = self._range_exact_host(q[i], radius)
+            ids_out[i], d_out[i] = self._range_exact_host(q[i], radius,
+                                                          fmask)
         graph_rows = np.flatnonzero(~is_exact)
         for i in range(0, graph_rows.size, QUERY_BATCH):
             take = graph_rows[i:i + QUERY_BATCH]
@@ -557,15 +799,15 @@ class HNSWIndex:
                           if p >= need + RANGE_SEED_EF + 1),
                          RANGE_POOLS[-1])
             for pool in [p for p in RANGE_POOLS if p >= start]:
-                _, ids, sat = self._range_once(qt, r32, layer, pool)
+                _, ids, sat = self._range_once(qt, r32, layer, pool, fmask)
                 sat_np = sat.cpu().numpy()
                 if not sat_np.any():
                     break
             ids_np = ids.cpu().numpy()
             for r, t in enumerate(take):
                 if sat_np[r]:
-                    ids_out[t], d_out[t] = self._range_exact_host(q[t],
-                                                                  radius)
+                    ids_out[t], d_out[t] = self._range_exact_host(
+                        q[t], radius, fmask)
                     continue
                 row = ids_np[r]
                 row = row[row >= 0]
@@ -575,17 +817,29 @@ class HNSWIndex:
                                        max(row.size, 1))
                 keep = (rid[0] >= 0) & (rd[0] <= radius)
                 ids_out[t], d_out[t] = rid[0][keep], rd[0][keep]
+        if pred is not None:
+            all_ids = np.unique(np.concatenate(
+                [x for x in ids_out if len(x)] or [np.empty(0, np.int32)]))
+            rows = self._rows(all_ids) if all_ids.size else \
+                np.empty((0, self.dim), np.float32)
+            ok = {int(x): bool(pred(v)) for x, v in zip(all_ids, rows)}
+            for i in range(n):
+                keep = np.asarray([ok[int(x)] for x in ids_out[i]], bool)
+                ids_out[i], d_out[i] = ids_out[i][keep], d_out[i][keep]
         return ids_out, d_out
 
-    def _range_exact_host(self, q1: np.ndarray, radius: float
+    def _range_exact_host(self, q1: np.ndarray, radius: float,
+                          fmask: Optional[torch.Tensor] = None
                           ) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact single-query range scan: float64 against the host mirror
-        while it is affordable, the device's blocked float32 scan
-        (ops/bruteforce.range_distances) and one (C,) transfer beyond."""
+        """Exact single-query range scan over the active rows in ``fmask``:
+        float64 against the host mirror while it is affordable, the
+        device's blocked float32 scan (ops/bruteforce.range_distances) and
+        one (C,) transfer beyond."""
         st = self._state
+        allowed = st.active if fmask is None else st.active & fmask
         if not self._mirrorable():
             d = BF.range_distances(
-                self.metric, st.vectors, st.norms, st.active,
+                self.metric, st.vectors, st.norms, allowed,
                 torch.as_tensor(q1).to(self.device),
                 float(np.float32(radius))).cpu().numpy()
             hit = np.flatnonzero(np.isfinite(d))
@@ -604,17 +858,18 @@ class HNSWIndex:
                     denom > 0, denom, 1.0), 1.0)
             else:
                 d = 1.0 - dot
-        d = np.where(st.active.cpu().numpy(), d, np.inf)
+        d = np.where(allowed.cpu().numpy(), d, np.inf)
         hit = np.flatnonzero(d <= radius)
         order = np.argsort(d[hit], kind="stable")
         return (hit[order].astype(np.int32),
                 d[hit][order].astype(np.float32))
 
     def _range_once(self, qt: torch.Tensor, radius: float, layer: int,
-                    pool: int):
+                    pool: int, fmask: Optional[torch.Tensor] = None):
         """One graph range pass: seeds from a k-NN beam of width
         RANGE_SEED_EF (in-range pockets not linked to the greedy entry
-        through in-range nodes), then ``range_search`` at ``pool``."""
+        through in-range nodes), then ``range_search`` at ``pool``, keeping
+        the ids in ``fmask``."""
         st = self._state
         qn = dst.norm_data(self.metric, qt)
         _, seeds = SR.knn_search(
@@ -622,7 +877,8 @@ class HNSWIndex:
             self._cfg.search_iter_factor * RANGE_SEED_EF + 16)
         ep_ok = (st.ep >= 0).expand(seeds.shape)
         return SR.range_search(self._cfg, st, qt, qn, seeds, ep_ok, layer,
-                               radius, pool, pool * 4 + 16)
+                               radius, pool, pool * 4 + 16,
+                               filtered=fmask is not None, filter_mask=fmask)
 
     def multi_layer_knn_query(self, query, k: int,
                               max_layer: int = 2 ** 30, min_layer: int = 0
@@ -687,12 +943,6 @@ class HNSWIndex:
     # ------------------------------------------------------------------
     # outside the slice
     # ------------------------------------------------------------------
-
-    def remove(self, ids) -> None:
-        raise _todo("remove", "queue 1 item 10")
-
-    def update(self, ids, vecs) -> None:
-        raise _todo("update", "queue 1 item 9")
 
     def get_info(self):
         raise _todo("get_info", "queue 1 item 11")

@@ -83,12 +83,16 @@ def exact_knn(metric: str, vectors: torch.Tensor, norms: torch.Tensor,
 
 def exact_knn2(metric: str, vectors: torch.Tensor, coarse: torch.Tensor,
                norms: torch.Tensor, active: torch.Tensor, q: torch.Tensor,
-               k: int, exclude=None, lanes: int = FUSED_BS):
+               k: int, exclude=None, lanes: int = FUSED_BS,
+               oversample: int = OVERSAMPLE,
+               survivor_floor: int = SURVIVOR_FLOOR):
     """Two-stage exact top-k: S survivors of the bf16 mirror + exact f32
-    rescore.  ``coarse/norms/active`` may be a prefix of the store (the
-    build scans the high-water prefix); survivor ids are global ids and the
-    rescore gathers from the full ``vectors``.  Same contract as
-    :func:`exact_knn`.
+    rescore, ``S = max(oversample * k, k + survivor_floor)`` (callers that
+    consume only a prefix of the k results, as the removal's candidate
+    scan does, narrow it).  ``coarse/norms/active`` may be a prefix of the
+    store (the build scans the high-water prefix); survivor ids are global
+    ids and the rescore gathers from the full ``vectors``.  Same contract
+    as :func:`exact_knn`.
 
     ``lanes`` is the lane-min scan's lane count (a multiple of 64, at least
     ``FUSED_BS``).  A true neighbour is lost when a row of its lane ranks
@@ -98,7 +102,7 @@ def exact_knn2(metric: str, vectors: torch.Tensor, coarse: torch.Tensor,
 
     Cs = coarse.shape[0]
     B = q.shape[0]
-    S = min(Cs, max(OVERSAMPLE * k, k + SURVIVOR_FLOOR))
+    S = min(Cs, max(oversample * k, k + survivor_floor))
     qn = dst.norm_data(metric, q)
     if S > FUSED_BS:
         si = _panel_survivors(metric, coarse, norms, active, q, qn, S,

@@ -32,6 +32,11 @@ def register_metric(name: str, fn) -> None:
         "custom metrics are not ported yet (ROADMAP queue 1 item 9)")
 
 
+def is_custom(metric: str) -> bool:
+    """True for a registered metric; the built-ins are dot-decomposable."""
+    return metric not in VALID_METRICS
+
+
 def check_metric(metric: str) -> None:
     if metric not in VALID_METRICS:
         raise ValueError(
@@ -56,7 +61,9 @@ def from_dot(metric: str, dot, qn, cn):
     """Distance from a dot product plus both vectors' norm data
     (broadcasting)."""
     if metric == "sq_euclid":
-        return qn + cn - 2.0 * dot
+        # (qn + cn) - 2 dot in one pass over the product: 2 dot is exact,
+        # so this rounds as the three-pass form does
+        return torch.sub(qn + cn, dot, alpha=2.0)
     if metric == "cosine":
         denom = qn * cn
         return torch.where(denom > 0.0, 1.0 - dot / denom,

@@ -415,9 +415,39 @@ def test_block_padding_and_validation():
         ix.update([100000], vecs[:1])
 
 
-def test_block_hnsw_router_raises():
-    with pytest.raises(NotImplementedError, match="item 12 remainder"):
-        T.BlockIndex(DIM, router="hnsw", device="cpu")
+def test_block_hnsw_router_raises(pair, data):
+    """router="hnsw" (it raised until the centroid graph's upkeep had
+    remove): on the reference's installed layout, both packages build the
+    centroid graph and route each query to the same blocks up to near-tie
+    swaps of centroid distance, and knn_query answers the same ids up to
+    near-tie swaps.  After an add and a remove the port rebuilds the graph
+    over the live blocks before the next query."""
+    jx0, _ = pair
+    vecs, q, d, gt = data
+    layout = (jx0._h_ids.copy(), jx0._h_vecs.copy())
+    jx = JB.BlockIndex(DIM, block_size=64, router="hnsw")
+    jx._install(*layout, next_id=N)
+    tx = T.BlockIndex(DIM, block_size=64, router="hnsw", device="cpu")
+    tx._install(*layout, next_id=N)
+    assert tx._router_index.count == jx._router_index.count == tx.n_blocks
+    bj = np.asarray(jx._route(jnp.asarray(q), 8))
+    bt = tx._route(torch.from_numpy(q), 8)
+    assert bt.dtype == torch.int32 and bt.shape == (100, 8)
+    dc = sq64(q, jx._h_cents)
+    assert same_up_to_ties(bt.numpy(), bj, lambda r, b: dc[r, b])
+    tids, _ = tx.knn_query(q, K, n_probe=8)
+    jids, _ = jx.knn_query(q, K, n_probe=8)
+    assert same_up_to_ties(tids, jids, lambda r, i: d[r, i])
+
+    new = tx.add(vecs[:200] + 0.001)
+    tx.remove(np.arange(0, N, 2))
+    assert tx._router_dirty
+    ids, _ = tx.knn_query(vecs[1:400:2], 1, n_probe=8)
+    assert not tx._router_dirty
+    assert tx._router_index.count == int((tx._h_fill > 0).sum())
+    assert (ids[:, 0] == np.arange(1, 400, 2)).mean() > 0.95
+    got, _ = tx.knn_query(vecs[:200] + 0.001, 1, n_probe=8)
+    assert (got[:, 0] == new).mean() > 0.95
 
 
 def test_block_tiny_shapes():

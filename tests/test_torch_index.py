@@ -1,8 +1,9 @@
 """Facade parity: hnswindex_torch.Index / HNSWIndex against hnswindex_tpu's
 on the main path (add, then unfiltered layer-0 knn_query through the
 pack), on the unpacked engine's calls (knn_query without the pack, at
-layer > 0 and exact, range_query, multi_layer_knn_query) on the
-reference's graph, and the contract that every call not ported yet raises.
+layer > 0 and exact, range_query, multi_layer_knn_query), remove, update
+and filters on the reference's graph, and the contract that every call not
+ported yet raises.
 
 Bars: the reference quickstart's shape (2,000 x 128, sq_euclid, M=16, k=1,
 on the bench's clustered corpus) has self-recall > 0.85 (on its first
@@ -151,6 +152,48 @@ def _range_matches(pair):
             assert (np.abs(dd - radius) <= TTS.GAP * sc).all()
 
 
+def _churned(pair, call):
+    """``call`` applied to a copy of the reference index and to a port
+    index holding the same graph; the port's ``active``, ``ep``, count,
+    free list and levels equal the reference's after it, and each layer's
+    directed edges overlap at >= 0.99."""
+    import test_torch_remove as TTR
+    ji0, _, vecs, _ = pair
+    ji, ti = TTR.jax_clone(ji0), TTS.installed(ji0)
+    call(ji, vecs)
+    call(ti, vecs)
+    t = TTR._snap(ti, TTR.t_dense)
+    j = TTR._snap(ji, TTR.j_dense)
+    TTR._same_host_state(t, j)
+    rows = np.flatnonzero(t["active"])
+    for layer in range(t["nbr"].shape[0]):
+        assert TTR._overlap(t["nbr"], t["deg"], j["nbr"], j["deg"], layer,
+                            rows) >= 0.99
+    return ti
+
+
+def _remove_matches(pair):
+    ti = _churned(pair, lambda i, v: i.remove([0]))
+    assert ti._free == [0] and not bool(ti._state.active[0])
+
+
+def _update_matches(pair):
+    ti = _churned(pair, lambda i, v: i.update([0], v[:1] + 0.01))
+    assert ti._free == [] and bool(ti._state.active[0])
+    np.testing.assert_array_equal(ti._rows([0])[0], pair[2][0] + 0.01)
+
+
+def _filter_matches(pair):
+    """An id-list filter of two ids at k=3 (the packed walk from row 0
+    meets id 2 only): the reference's ids and distances, padded."""
+    ji, ti, vecs, q = pair
+    tids, td = ti.knn_query(vecs[:1], 3, filter_fnc=[1, 2])
+    jids, jd = ji.knn_query(vecs[:1], 3, filter_fnc=[1, 2])
+    np.testing.assert_array_equal(tids, jids)
+    assert set(tids[0].tolist()) <= {1, 2, -1} and tids[0, 0] >= 0
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-5)
+
+
 def _multi_layer_matches(pair):
     """multi_layer_knn_query: indexed by layer, the ids of layer l have
     level >= l and equal the reference's up to near-tie swaps."""
@@ -168,22 +211,24 @@ def _multi_layer_matches(pair):
                                      ti_[None], ji_[None]).all()
 
 
-#: calls this slice ported: their cases now check the answer against the
-#: reference's
+#: calls the unpacked engine's slice and the removal slice ported: their
+#: cases now check the answer against the reference's
 _PORTED = {"range_query": _range_matches, "multi_layer": _multi_layer_matches,
-           "layer": _layer_matches, "exact": _exact_matches}
+           "layer": _layer_matches, "exact": _exact_matches,
+           "remove": _remove_matches, "update": _update_matches,
+           "filter": _filter_matches}
 
 
 @pytest.mark.parametrize("call", [
-    lambda i, v: i.remove([0]),
-    lambda i, v: i._impl.update([0], v[:1]),
+    "remove",
+    "update",
     "range_query",
     "multi_layer",
     lambda i, v: i.get_info(),
     lambda i, v: i.get_connected_component_counts(),
     lambda i, v: i.serialize("unused.bin"),
     lambda i, v: T.Index.deserialize("unused.bin"),
-    lambda i, v: i.knn_query(v[:1], 3, filter_fnc=[1, 2]),
+    "filter",
     "layer",
     "exact",
     lambda i, v: T.ops.distance.register_metric("l1", lambda a, b: a),
@@ -193,9 +238,10 @@ _PORTED = {"range_query": _range_matches, "multi_layer": _multi_layer_matches,
 def test_out_of_slice_calls_raise(small, request, call):
     """Calls outside the ported slices raise NotImplementedError naming
     their ROADMAP item.  The calls the unpacked engine ported (range_query,
-    multi_layer_knn_query, knn_query at layer > 0 and exact=True) keep
-    their cases, which now hold the answer against the reference's on the
-    reference's graph."""
+    multi_layer_knn_query, knn_query at layer > 0 and exact=True) and the
+    removal slice ported (remove, update, filters) keep their cases, which
+    now hold the answer against the reference's on the reference's
+    graph."""
     if isinstance(call, str):
         _PORTED[call](request.getfixturevalue("pair"))
         return

@@ -400,3 +400,117 @@ def test_block_index_on_card_runs_the_kernel(dev):
     assert (got[:, 0] == new).mean() > 0.9
     back, _ = ix.knn_query(vecs[:100], 10, n_probe=8)
     assert not np.isin(back, np.arange(100)).any()
+
+
+def _moved_to(ix, where):
+    """A copy of the CPU index ``ix`` on ``where``: the same graph and host
+    state (free list, scan mark, level RNG, panel)."""
+    import copy
+    import dataclasses
+    out = T.HNSWIndex(ix.dim, ix.metric, dataclasses.replace(ix.params),
+                      device=where)
+    for f in dataclasses.fields(ix._state):
+        setattr(out._state, f.name,
+                getattr(ix._state, f.name).to(where, copy=True))
+    out._count_host, out._length = ix._count_host, ix._length
+    out._free, out._scan_hwm = list(ix._free), ix._scan_hwm
+    out._rng = copy.deepcopy(ix._rng)
+    out._upper_np = ix._upper_np.copy()
+    out._upper_pos = dict(ix._upper_pos)
+    out._upper_cnt, out._upper_holes = ix._upper_cnt, ix._upper_holes
+    out._panel_push()
+    return out
+
+
+def test_remove_add_update_on_card_match_cpu(dev):
+    """A 3,000 x 32 graph on the CPU and the same graph on the card, through
+    the same remove (300 ids, the entry point among them: "high"), add
+    (they reuse the freed slots) and update (100 rows: "fast"): identical
+    active, entry point, free list and levels after each step, per-layer
+    edge overlap >= 0.99."""
+    n, dim = 3000, 32
+    rng = np.random.default_rng(17)
+    centers = rng.random((8, dim)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 8, n)]
+            + 0.05 * rng.standard_normal((n, dim)).astype(np.float32))
+    cpu = T.HNSWIndex(dim, "sq_euclid", T.HNSWParameters(collection_size=n),
+                      device="cpu")
+    cpu.add(vecs)
+    card = _moved_to(cpu, dev)
+    rem = rng.choice(n, 300, replace=False)
+    rem[0] = int(cpu._state.ep)
+    upd = rng.choice(np.setdiff1d(np.arange(n), rem), 100, replace=False)
+    steps = [lambda ix: ix.remove(rem),
+             lambda ix: ix.add(vecs[:100] + 0.01),
+             lambda ix: ix.update(upd, vecs[upd] + 0.02)]
+    for step in steps:
+        outs = [step(ix) for ix in (cpu, card)]
+        if outs[0] is not None:
+            np.testing.assert_array_equal(outs[0], outs[1])
+        for name in ("active", "level", "ep", "count"):
+            assert torch.equal(getattr(cpu._state, name),
+                               getattr(card._state, name).cpu()), name
+        assert cpu._free == card._free
+        overlap = _edge_overlap(cpu, card)
+        assert min(overlap) >= 0.99, overlap
+    ids, _ = card.knn_query(vecs[upd] + 0.02, 1)
+    assert (ids[:, 0] == upd).mean() > 0.9
+
+
+def test_filtered_exact_on_card_matches_cpu(dev):
+    """A 50% id mask on exact=True: the card runs the lane-min kernel, and
+    its ids equal the CPU's on >= 0.99 of entries; every id is allowed."""
+    n, dim = 20000, 128
+    rng = np.random.default_rng(19)
+    vecs = rng.random((n, dim)).astype(np.float32)
+    mask = rng.random(n) < 0.5
+    got = {}
+    for where in ("cpu", dev):
+        ix = T.HNSWIndex(dim, "sq_euclid", T.HNSWParameters(
+            collection_size=n), device=where)
+        ix._alloc_slots(n)
+        ids = torch.arange(n, device=ix.device)
+        from hnswindex_torch.core.graph import write_rows
+        write_rows(ix._state, ix._cfg, ids, torch.from_numpy(vecs).to(where),
+                   torch.zeros(n, dtype=torch.int32, device=ix.device))
+        ix._count_host = n
+        fm = np.zeros(ix._state.capacity, bool)
+        fm[:n] = mask
+        n0 = TF.lane_min_scan.launches
+        got[str(where)] = ix.knn_query(vecs[:300] + 0.01, 10, filter_fnc=fm,
+                                       exact=True)
+        launched = TF.lane_min_scan.launches > n0
+        assert launched == (where != "cpu")
+    (ci, cd), (gi, gd) = got["cpu"], got[str(dev)]
+    assert mask[gi].all()
+    same = ci == gi
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(gd[same], cd[same], rtol=1e-5, atol=1e-4)
+
+
+def test_exact_repair_candidates_through_the_kernel_on_card(dev,
+                                                            monkeypatch):
+    """At 2^20 x 128 rows the removal's candidate scan is exact_knn2 with
+    oversample=2, survivor_floor=64 (S = 200 at the default 100 candidates),
+    through the lane-min kernel; its ids equal the plain version's on
+    >= 0.999 of entries."""
+    from hnswindex_torch.core import graph as G
+    from hnswindex_torch.core import remove as TR
+    C, D = 1 << 20, 128
+    g = torch.Generator(device=dev).manual_seed(23)
+    cfg = G.GraphConfig(dim=D)
+    st = G.empty_state(cfg, C, dev)
+    G.write_rows(st, cfg, torch.arange(C, device=dev),
+                 torch.rand((C, D), generator=g, device=dev),
+                 torch.zeros(C, dtype=torch.int32, device=dev))
+    scan = torch.randperm(C, generator=g, device=dev)[:512]
+    st.active[scan] = False
+    n0 = TF.lane_min_scan.launches
+    got = TR.exact_repair_candidates(cfg, st, scan, 0, 100)
+    torch.cuda.synchronize()
+    assert TF.lane_min_scan.launches > n0
+    monkeypatch.setattr(TF, "lane_min_scan", TF.lane_min_scan_ref)
+    want = TR.exact_repair_candidates(cfg, st, scan, 0, 100)
+    assert got.shape == want.shape == (512, 100)
+    assert (got == want).float().mean().item() >= 0.999
+    assert not torch.isin(got, scan).any()

@@ -17,6 +17,7 @@ including at a pool small enough to saturate.  Where ids agree, the
 float32 distances agree within rtol 1e-5 and atol 1e-4 (measured up to
 3.8e-5 on the sq_euclid corpus, for the same reason)."""
 
+import copy
 import dataclasses
 
 import jax.numpy as jnp
@@ -62,13 +63,21 @@ def loaded(request):
 def installed(ji, **overrides):
     """A port ``HNSWIndex`` (CPU) holding the reference index ``ji``'s
     graph, loaded through convert, with a copy of ``ji``'s parameters
-    (``overrides`` applied to the copy)."""
+    (``overrides`` applied to the copy) and of its host state: counts,
+    free list, scan mark, level RNG and upper-node panel."""
     tp = T.HNSWParameters(**{**dataclasses.asdict(ji.params), **overrides})
     ti = T.HNSWIndex(ji.dim, ji.metric, tp, device="cpu")
     assert dataclasses.asdict(ti._cfg) == dataclasses.asdict(ji._cfg)
     leaves = {f: np.asarray(getattr(ji._state, f)) for f in convert.FIELDS}
     ti._state = convert.state_from_numpy(leaves, ti._cfg, "cpu")
     ti._count_host, ti._length = ji._count_host, ji._length
+    ti._free, ti._scan_hwm = list(ji._free), ji._scan_hwm
+    ti._rng = copy.deepcopy(ji._rng)
+    if ji._upper_ids is not None:
+        ti._upper_np = np.array(ji._upper_ids, dtype=np.int32)
+        ti._upper_pos = dict(ji._upper_pos)
+        ti._upper_cnt, ti._upper_holes = ji._upper_cnt, ji._upper_holes
+        ti._panel_push()
     return ti
 
 
@@ -105,6 +114,20 @@ def near_tie_rows(metric, q, vecs, tids, jids):
     ok = (tids == jids) | (np.isfinite(dt) & np.isfinite(dj)
                           & (np.abs(dt - dj) <= GAP * scale))
     return ok.all(axis=1)
+
+
+def first_unique(ids):
+    """Each row's ids with repeats dropped (first occurrence kept), -1
+    padded to the same width.  The reference's filtered result pools can
+    list an id twice (a node evicted from the walk's pool and met again is
+    added again); the port's never do, and the reference's pool without
+    its repeats is a prefix of the port's."""
+    ids = np.asarray(ids)
+    out = np.full_like(ids, -1)
+    for r, row in enumerate(ids):
+        seen = list(dict.fromkeys(int(x) for x in row if x >= 0))
+        out[r, :len(seen)] = seen
+    return out
 
 
 def assert_same_ids(metric, q, vecs, tids, jids):
@@ -176,10 +199,12 @@ def test_beam_search_matches_reference(loaded, expand):
 
 def test_filtered_beam_search_matches_reference(loaded):
     """A fixed mask (every third id allowed): the result pool holds allowed
-    ids only and equals the reference's up to near-tie swaps in all but
-    two of the 64 rows.  The result pool collects every allowed node the
-    walk visits, so a near-tie swap at the main pool's boundary that sends
-    one walk elsewhere changes that row's result pool (measured: 1 row)."""
+    ids only, each once, and its prefix equals the reference's pool
+    without its repeated ids (``first_unique``) up to near-tie swaps in
+    all but two of the 64 rows.  The result pool collects every allowed
+    node the walk visits, so a near-tie swap at the main pool's boundary
+    that sends one walk elsewhere changes that row's result pool
+    (measured: 1 row)."""
     metric, vecs, ji, tcfg, tstate, q = loaded
     tq, tqn, jq, jqn = _both(loaded)
     entry = _entries(loaded)
@@ -195,8 +220,10 @@ def test_filtered_beam_search_matches_reference(loaded):
                              filter_mask=torch.from_numpy(mask))
     tids = tids.numpy()
     assert mask[tids[tids >= 0]].all() and (tids >= 0).any()
-    assert (~near_tie_rows(metric, q, vecs, tids, np.asarray(jids))).sum() \
-        <= 2
+    np.testing.assert_array_equal(first_unique(tids), tids)
+    ju = first_unique(jids)
+    assert (~near_tie_rows(metric, q, vecs, np.where(ju >= 0, tids, -1),
+                           ju)).sum() <= 2
 
 
 @pytest.mark.parametrize("layer,expand", [(0, 4), (1, 1)])
