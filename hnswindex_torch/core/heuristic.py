@@ -80,9 +80,9 @@ def prune(metric: str,
     n_valid = svalid.sum(dim=1)
     keep_all = n_valid < max_edges
 
-    ar = torch.arange(N, device=dev)
-    by_col = ((ar[None, :] < ar[:, None])[None] & (pd < sd[:, :, None])
-              & svalid[:, :, None] & svalid[:, None, :])
+    # _accept_cols reads only s < c, and an invalid column c is dropped by
+    # the mask below, so only invalid earlier candidates s need masking
+    by_col = (pd < sd[:, :, None]) & svalid[:, None, :]
 
     accepted = _accept_cols(by_col) & svalid
     accepted = torch.where(keep_all[:, None], svalid, accepted)

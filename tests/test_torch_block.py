@@ -415,38 +415,55 @@ def test_block_padding_and_validation():
         ix.update([100000], vecs[:1])
 
 
+def cos64(q, x):
+    q64, x64 = q.astype(np.float64), x.astype(np.float64)
+    return 1.0 - (q64 @ x64.T) / (np.linalg.norm(q64, axis=1)[:, None]
+                                  * np.linalg.norm(x64, axis=1)[None, :])
+
+
+#: the hnsw router's layout: 600 blocks of 5 rows, so that the centroid
+#: graph of either package is a 600 x 32 cosine index, the shapes of
+#: test_torch_pack.cosine_build, whose compiled programs it shares
+ROUTER_NB, ROUTER_BS = 600, 5
+
+
 def test_block_hnsw_router_raises(pair, data):
     """router="hnsw" (it raised until the centroid graph's upkeep had
-    remove): on the reference's installed layout, both packages build the
-    centroid graph and route each query to the same blocks up to near-tie
-    swaps of centroid distance, and knn_query answers the same ids up to
-    near-tie swaps.  After an add and a remove the port rebuilds the graph
-    over the live blocks before the next query."""
+    remove): on an installed cosine layout (the reference's blocks cut into
+    600 blocks of 5 rows), both packages build the centroid graph and
+    route each query to the same blocks up to near-tie swaps of centroid
+    distance, and knn_query answers the same ids up to near-tie swaps.
+    After an add and a remove the port rebuilds the graph over the live
+    blocks before the next query."""
     jx0, _ = pair
-    vecs, q, d, gt = data
-    layout = (jx0._h_ids.copy(), jx0._h_vecs.copy())
-    jx = JB.BlockIndex(DIM, block_size=64, router="hnsw")
+    vecs, q, _, _ = data
+    order = jx0._h_ids[jx0._h_ids >= 0]
+    layout = (order.reshape(ROUTER_NB, ROUTER_BS).astype(np.int32),
+              vecs[order].reshape(ROUTER_NB, ROUTER_BS, DIM))
+    jx = JB.BlockIndex(DIM, "cosine", block_size=ROUTER_BS, router="hnsw")
     jx._install(*layout, next_id=N)
-    tx = T.BlockIndex(DIM, block_size=64, router="hnsw", device="cpu")
+    tx = T.BlockIndex(DIM, "cosine", block_size=ROUTER_BS, router="hnsw",
+                      device="cpu")
     tx._install(*layout, next_id=N)
-    assert tx._router_index.count == jx._router_index.count == tx.n_blocks
+    assert tx._router_index.count == jx._router_index.count == ROUTER_NB
     bj = np.asarray(jx._route(jnp.asarray(q), 8))
     bt = tx._route(torch.from_numpy(q), 8)
     assert bt.dtype == torch.int32 and bt.shape == (100, 8)
-    dc = sq64(q, jx._h_cents)
+    dc = cos64(q, jx._h_cents)
     assert same_up_to_ties(bt.numpy(), bj, lambda r, b: dc[r, b])
     tids, _ = tx.knn_query(q, K, n_probe=8)
     jids, _ = jx.knn_query(q, K, n_probe=8)
+    d = cos64(q, vecs)
     assert same_up_to_ties(tids, jids, lambda r, i: d[r, i])
 
     new = tx.add(vecs[:200] + 0.001)
     tx.remove(np.arange(0, N, 2))
     assert tx._router_dirty
-    ids, _ = tx.knn_query(vecs[1:400:2], 1, n_probe=8)
+    ids, _ = tx.knn_query(vecs[1:400:2], 1, n_probe=32)
     assert not tx._router_dirty
     assert tx._router_index.count == int((tx._h_fill > 0).sum())
     assert (ids[:, 0] == np.arange(1, 400, 2)).mean() > 0.95
-    got, _ = tx.knn_query(vecs[:200] + 0.001, 1, n_probe=8)
+    got, _ = tx.knn_query(vecs[:200] + 0.001, 1, n_probe=32)
     assert (got[:, 0] == new).mean() > 0.95
 
 

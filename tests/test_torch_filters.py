@@ -10,7 +10,9 @@ ids equal the reference's up to near-tie swaps.  The reference's graph
 paths can return an id twice (its filtered result pool adds again a node
 that the walk's pool evicted and met again); the port's never do, so its
 rows are held against the reference's rows without their repeats
-(``first_unique``) on the positions those fill.  Range results: the same id
+(``first_unique``) on the positions those fill, and the port's ids past
+them are allowed and lie at or beyond the last of them
+(``test_torch_search.tail_rows``).  Range results: the same id
 sets up to ids within the near-tie gap of the radius.
 
 Callable filters: every returned id passes, and the ids equal the
@@ -57,6 +59,7 @@ def _check_rows(tids, jids, q, vecs, mask):
     ju = TTS.first_unique(jids)
     assert TTS.near_tie_rows("sq_euclid", q, vecs,
                              np.where(ju >= 0, tids, -1), ju).all()
+    assert TTS.tail_rows("sq_euclid", q, vecs, tids, ju).all()
 
 
 @pytest.mark.parametrize("path", ["packed", "unpacked", "layer1", "exact"])

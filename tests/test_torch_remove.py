@@ -287,9 +287,11 @@ def test_exact_repair_candidates_match_reference(ref, churn, layer):
 def test_beam_repair_candidates_match_reference(ref, churn):
     """The beam form (exact_candidates=False) at layer 0 on the first 64
     removed ids: a prefix of each row equals the reference's row without
-    its repeated ids (test_torch_search.first_unique) up to near-tie swaps
-    in all but two rows (its result pool collects every allowed node the
-    walk visits, as test_torch_search's filtered beam)."""
+    its repeated ids (test_torch_search.first_unique) up to near-tie swaps,
+    and the rest of the row lies at or beyond that prefix's last distance
+    (test_torch_search.tail_rows), in all but two rows (its result pool
+    collects every allowed node the walk visits, as test_torch_search's
+    filtered beam)."""
     ji, vecs = ref
     rem = churn["rem"]
     jst, remj, ti, rmask = _marked(ji, rem)
@@ -303,6 +305,7 @@ def test_beam_repair_candidates_match_reference(ref, churn):
     ju = TTS.first_unique(jc)
     rows = TTS.near_tie_rows("sq_euclid", vecs[scan], vecs,
                              np.where(ju >= 0, tc, -1), ju)
+    rows &= TTS.tail_rows("sq_euclid", vecs[scan], vecs, tc, ju)
     assert (~rows).sum() <= 2, np.flatnonzero(~rows)
 
 
