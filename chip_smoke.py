@@ -106,6 +106,34 @@
     removing 10,000 rows the router is rebuilt before the next query,
     recall@10 >= 0.90 against the live rows; block-scores launches > 0.
 
+11. Statistics on the 1M index, right after its build and again after
+    the churn: ``get_info()`` and ``get_connected_component_counts()``,
+    each equal to a recomputation from the tables read to the host (numpy
+    ``bincount`` degrees with the reference's median rule; scipy's weak
+    components over the active rows of each layer); seconds printed.
+12. Snapshot of the churned 1M index (free list, removed rows and repaired
+    edges in the file): ``serialize`` to a temporary directory and
+    ``HNSWIndex.deserialize(path, device="cuda")``; 1,000 queries must
+    return identical ids and distances from both; the same 1,000 new rows
+    added to both (the original's level RNG re-seeded from
+    ``random_seed``, as the load re-seeds it) must take the same freed
+    slots with the same levels.  Write and read seconds and bytes printed.
+13. Reference snapshot of the 200k beam-path index (kept from phase 6):
+    ``to_reference_snapshot`` and ``from_reference_snapshot`` on the card;
+    packed recall@10 of 1,000 queries no more than 0.005 below the live
+    index's (the export re-prunes layer-0 rows over the 2M cap, which the
+    live pack cuts unpruned); a second export of the loaded index equal
+    byte for byte; the golden stream ``tests/fixtures/refsnap_golden.bin``
+    loads to ``refsnap_golden_expected.npz``'s ids and distances.
+14. Custom metric: L1 registered as a torch callable, the first 200,000
+    rows built under it (every wave after the seed on the beam path),
+    packed ``knn_query(k=10)`` of 1,000 rows at ef 16 and ef 32 against an
+    exact L1 top-10 on the card (``torch.cdist``), recall@10 >= 0.90 at ef
+    32; distances equal to the callable's; ``exact=True`` must raise.
+    These phases launch no kernel: a registered metric has no exact scan
+    and no block path, and statistics and snapshots are reductions and
+    host I/O.
+
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 non-zero before it.  Without a CUDA device the script exits non-zero and
 prints no result.
@@ -137,6 +165,7 @@ N_FALLBACK = 200_000        # rows of the facade-fallback index
 N_CHURN = 10_000            # rows added to / removed from the BlockIndex
 N_REMOVE = 100_000          # rows the bulk removal takes from the 1M index
 N_BEAM = 200_000            # rows of the beam-path build
+N_CUSTOM = 200_000          # rows of the custom-metric (L1) build
 BEAM_THRESHOLD = 20_000     # its exact_build_threshold (default 2^24)
 NQ_SMALL = 1_000            # queries of the layer-1, range and k=300 phases
 # published peaks of one H100 SXM: bf16 tensor cores, f32 CUDA cores, HBM
@@ -1080,9 +1109,228 @@ def beam_build(vecs: np.ndarray) -> dict:
           f"recall@10 {urecall:.4f}", flush=True)
     if recall < 0.90:
         fail(f"beam-path build recall@10 {recall} < 0.90")
+    impl._pack = None                       # kept for the last phases
     return dict(build_s=build_s, inserts_per_s=N_BEAM / build_s,
                 waves=waves, phases_s=phases, recall_at_10=recall,
-                unpacked_recall_at_10=urecall)
+                unpacked_recall_at_10=urecall), index, gt
+
+
+def median_rule(v: np.ndarray) -> int:
+    """The reference's median of integer degrees (HNSWInfo.cs:45-51)."""
+    s = np.sort(v)
+    n = s.size
+    return int(s[n // 2]) if n % 2 else int((s[n // 2 - 1] + s[n // 2]) // 2)
+
+
+def stats_phase(index, what: str) -> dict:
+    """``get_info()`` and ``get_connected_component_counts()`` on the 1M
+    index, each held against a recomputation from its tables read to the
+    host: numpy ``bincount`` for the degrees, scipy's weak components over
+    the active rows of each layer."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    impl = index._impl
+    info, info_s = timed_query(index.get_info)
+    comps, comp_s = timed_query(index.get_connected_component_counts)
+    st = impl._state
+    C = st.capacity
+    act = st.active.cpu().numpy()
+    lvl = st.level.cpu().numpy()
+    top = int(lvl[int(st.ep)])
+    if len(comps) != top + 1 or len(info.layers) != top + 1:
+        fail(f"stats {what}: {len(info.layers)} info layers and "
+             f"{len(comps)} component counts for top layer {top}")
+    for layer in range(top + 1):
+        nbr = (st.nbr0 if layer == 0 else st.nbru[layer - 1]).cpu().numpy()
+        deg = (st.deg0 if layer == 0 else st.degu[layer - 1]).cpu().numpy()
+        on = act & (lvl >= layer)
+        rows = np.flatnonzero(on)
+        e = nbr[rows]
+        src = np.repeat(rows, (e >= 0).sum(1))
+        dst_ = e[e >= 0].astype(np.int64)
+        indeg = np.bincount(dst_, minlength=C)[rows]
+        od = deg[rows].astype(np.int64)
+        want = dict(layer_id=layer, nodes_count=int(rows.size),
+                    max_out_edges=int(od.max()), min_out_edges=int(od.min()),
+                    max_in_edges=int(indeg.max()),
+                    min_in_edges=int(indeg.min()),
+                    avg_out_edges=int(od.sum()) / rows.size,
+                    avg_in_edges=int(indeg.sum()) / rows.size,
+                    out_edges_median=median_rule(od),
+                    in_edges_median=median_rule(indeg))
+        got = vars(info.layers[layer])
+        if got != want:
+            fail(f"stats {what}: layer {layer} get_info {got} != {want}")
+        both = on[dst_]
+        g = csr_matrix((np.ones(int(both.sum()), np.int8),
+                        (src[both], dst_[both])), shape=(C, C))
+        n_comp = connected_components(g[rows][:, rows], directed=True,
+                                      connection="weak")[0]
+        if comps[layer] != n_comp:
+            fail(f"stats {what}: layer {layer} has {comps[layer]} "
+                 f"components, scipy finds {n_comp}")
+    print(f"stats {what}: get_info {info_s:.3f} s, connected components "
+          f"{comp_s:.3f} s ({top + 1} layers; nodes "
+          f"{[x.nodes_count for x in info.layers]}; components {comps}); "
+          f"equal to numpy bincount and scipy weak components", flush=True)
+    return dict(info_s=info_s, components_s=comp_s, components=comps,
+                nodes=[x.nodes_count for x in info.layers])
+
+
+def snapshot_phase(index, vecs: np.ndarray) -> dict:
+    """``serialize`` of the churned 1M index and ``deserialize`` on the
+    card: identical answers to 1,000 queries; then the same 1,000 new rows
+    added to both take the same freed slots with the same levels (the load
+    re-seeds the level RNG from ``random_seed``, as the reference's does,
+    so the original is re-seeded alike before its add)."""
+    import os
+    import tempfile
+    import torch
+    import hnswindex_torch
+
+    impl = index._impl
+    q = vecs[:NQ_SMALL] + 0.01
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "index.npz")
+        _, write_s = timed_query(lambda: impl.serialize(path))
+        nbytes = os.path.getsize(path)
+        loaded, read_s = timed_query(
+            lambda: hnswindex_torch.HNSWIndex.deserialize(
+                path, device=impl.device))
+    a, b = impl.knn_query(q, 10), loaded.knn_query(q, 10)
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        fail("snapshot: the loaded index answers differently")
+    rng = np.random.default_rng(SEED + 10)
+    fresh = (vecs[rng.choice(vecs.shape[0], NQ_SMALL, replace=False)]
+             + 0.01 * rng.standard_normal((NQ_SMALL, D)).astype(np.float32))
+    impl._rng = np.random.default_rng(impl.params.random_seed)
+    ids_a, ids_b = impl.add(fresh), loaded.add(fresh)
+    ta = torch.as_tensor(ids_a.astype(np.int64), device=impl.device)
+    same_levels = bool((impl._state.level[ta]
+                        == loaded._state.level[ta]).all())
+    if not np.array_equal(ids_a, ids_b) or not same_levels:
+        fail("snapshot: an add after the load took other ids or levels")
+    found = loaded.knn_query(fresh, 1)[0][:, 0]
+    self_rec = float((found == ids_b).mean())
+    print(f"snapshot: {impl.count - NQ_SMALL} rows and {len(impl._free)} "
+          f"free slots left after the add; write {write_s:.2f} s, read {read_s:.2f} "
+          f"s, {nbytes} bytes; {NQ_SMALL} queries answered identically; "
+          f"{NQ_SMALL} rows added to both took the same ids and levels "
+          f"(recall@1 on themselves {self_rec:.4f})", flush=True)
+    if self_rec < 0.90:
+        fail(f"snapshot: recall@1 of the added rows {self_rec} < 0.90")
+    del loaded
+    torch.cuda.empty_cache()
+    return dict(write_s=write_s, read_s=read_s, bytes=nbytes,
+                recall_at_1_added=self_rec)
+
+
+def refsnap_phase(index, gt: np.ndarray) -> dict:
+    """``to_reference_snapshot`` of the 200k beam-path index and
+    ``from_reference_snapshot`` on the card: packed recall@10 of 1,000
+    queries no more than 0.005 below the live index's, a second export of
+    the loaded index byte for byte the first; then the golden stream of
+    the repo's tests."""
+    import os
+    import tempfile
+    import hnswindex_torch
+
+    impl = index._impl
+    sub_q = impl._rows(np.arange(NQ_SMALL))
+    p = impl.params
+    p.pack_queries, p.min_nn = "auto", hnswindex_torch.HNSWParameters().min_nn
+    live = recall_at_10(impl.knn_query(sub_q, 10)[0], gt)
+    with tempfile.TemporaryDirectory() as d:
+        p1, p2 = os.path.join(d, "a.bin"), os.path.join(d, "b.bin")
+        _, out_s = timed_query(lambda: impl.to_reference_snapshot(p1))
+        loaded, in_s = timed_query(
+            lambda: hnswindex_torch.HNSWIndex.from_reference_snapshot(
+                p1, device=impl.device))
+        loaded.to_reference_snapshot(p2)
+        with open(p1, "rb") as f1, open(p2, "rb") as f2:
+            same = f1.read() == f2.read()
+        nbytes = os.path.getsize(p1)
+    rec = recall_at_10(loaded.knn_query(sub_q, 10)[0], gt)
+    print(f"reference snapshot: {impl.count} rows, {nbytes} bytes; export "
+          f"{out_s:.2f} s, import {in_s:.2f} s; recall@10 live {live:.4f} "
+          f"loaded {rec:.4f}; second export identical: {same}", flush=True)
+    # the export re-prunes layer-0 rows over the 2M cap, where the live
+    # pack cuts them at 2M unpruned: recall may rise, and must not fall
+    if rec < live - 0.005 or not same:
+        fail("reference snapshot: recall fell or the second export "
+             "differs")
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fixtures")
+    exp = np.load(os.path.join(here, "refsnap_golden_expected.npz"))
+    gold = hnswindex_torch.HNSWIndex.from_reference_snapshot(
+        os.path.join(here, "refsnap_golden.bin"), device=impl.device)
+    gi, gd = gold.knn_query(exp["queries"], k=5)
+    if gold.count != int(exp["count"]) or not np.array_equal(
+            gi, exp["ids"]) or not np.allclose(gd, exp["dists"], rtol=1e-6,
+                                               atol=0, equal_nan=True):
+        fail("reference snapshot: the golden stream loads differently")
+    print("reference snapshot: the golden stream loads as its expected "
+          "ids and distances", flush=True)
+    return dict(export_s=out_s, import_s=in_s, bytes=nbytes,
+                recall_live=live, recall_loaded=rec)
+
+
+def custom_metric_phase(vecs: np.ndarray, device: str = "cuda") -> dict:
+    """L1 registered as a torch callable; the first 200,000 rows built
+    under it (every wave after the seed on the beam path) and served
+    through the packed engine at ef 16 and 32, recall@10 against an exact
+    L1 scan on the card; ``exact=True`` must raise."""
+    import torch
+    import hnswindex_torch
+
+    hnswindex_torch.register_metric(
+        "l1", lambda a, b: torch.sum(torch.abs(a - b), dim=-1))
+    sub = vecs[:N_CUSTOM]
+    index = hnswindex_torch.Index(D, "l1", device=device)
+    index.set_collection_size(N_CUSTOM)
+    _, build_s = timed_query(lambda: index.add(sub))
+    impl = index._impl
+    waves = dict(impl.wave_counts)
+    if index.count != N_CUSTOM or waves["exact"] != 0:
+        fail(f"custom metric: count {index.count}, waves {waves}")
+    phases = impl.timer.seconds()
+    split = " ".join(f"{k}={v:.2f}s" for k, v in sorted(phases.items()))
+    print(f"custom metric (L1): {N_CUSTOM} rows in {build_s:.2f} s = "
+          f"{N_CUSTOM / build_s:.1f} inserts/s; waves {waves}; phases "
+          f"{split}", flush=True)
+    xd = torch.as_tensor(sub, device=device)
+    q = sub[:NQ_SMALL]
+    gt = torch.cat([torch.topk(torch.cdist(
+        torch.as_tensor(q[i:i + 250], device=device), xd, p=1), 10,
+        dim=1, largest=False).indices.cpu()
+        for i in range(0, NQ_SMALL, 250)]).numpy()
+    out = dict(build_s=build_s, inserts_per_s=N_CUSTOM / build_s,
+               waves=waves, phases_s=phases)
+    for ef in (16, 32):
+        impl.params.min_nn = ef
+        (qi, qd), s = timed_query(lambda: index.knn_query(q, 10))
+        check_answers(f"custom metric ef {ef}", qi, qd, NQ_SMALL, N_CUSTOM)
+        direct = np.abs(sub[qi[:50]] - q[:50, None]).sum(-1)
+        if not np.allclose(qd[:50], direct, rtol=1e-4):
+            fail("custom metric: distances differ from the callable's")
+        out[f"recall_at_10_ef{ef}"] = recall_at_10(qi, gt)
+        out[f"seconds_ef{ef}"] = s
+        print(f"custom metric: {NQ_SMALL} x k=10 at ef {ef} (packed: "
+              f"{impl._pack is not None}) {s:.2f} s = {NQ_SMALL / s:.1f} "
+              f"q/s, recall@10 {out[f'recall_at_10_ef{ef}']:.4f}",
+              flush=True)
+    if impl._pack is None:
+        fail("custom metric: the pack did not engage")
+    if out["recall_at_10_ef32"] < 0.90:
+        fail(f"custom metric: recall@10 {out['recall_at_10_ef32']} < 0.90 "
+             "at ef 32")
+    try:
+        index.knn_query(q[:2], 10, exact=True)
+        fail("custom metric: exact=True did not raise")
+    except ValueError:
+        pass
+    return out
 
 
 def main() -> int:
@@ -1137,6 +1385,7 @@ def main() -> int:
                      for k in ("scan", "prune", "reverse", "upper"))
     print(f"build: {n} rows in {build_s:.2f} s = {n / build_s:.1f} "
           f"inserts/s; phases {split}", flush=True)
+    stats_built = stats_phase(index, "after the build")
 
     nq = NQ
     t0 = time.perf_counter()
@@ -1177,7 +1426,7 @@ def main() -> int:
     # before those phases existed; the main index (with its ~9 GB pack)
     # stays on the card meanwhile
     torch.cuda.empty_cache()
-    beam = beam_build(vecs)
+    beam, beam_index, beam_gt = beam_build(vecs)
     torch.cuda.empty_cache()
     blockp = block_path(vecs, gt)
     torch.cuda.empty_cache()
@@ -1186,15 +1435,25 @@ def main() -> int:
     # filters, then removal, re-add and update on the main index
     filters = filter_phase(index, vecs, xd)
     churn = churn_phases(index, vecs)
+    stats_churned = stats_phase(index, "after the churn")
+    snap = snapshot_phase(index, vecs)
     del index, xd
     torch.cuda.empty_cache()
     router = block_router_phase(vecs, gt, blockp["queries_per_s"])
+    torch.cuda.empty_cache()
+    refsnap = refsnap_phase(beam_index, beam_gt)
+    del beam_index
+    torch.cuda.empty_cache()
+    custom = custom_metric_phase(vecs)
 
     print(json.dumps({"summary": {
         "n": n, "build_s": build_s, "build_inserts_per_s": n / build_s,
         "phases_s": phases, "queries_per_s": qs, "recall_at_10": recall,
         "lane_min_scan_phases": k1, "graph_path": graph,
         "filters": filters, "churn": churn, "hnsw_router": router,
+        "stats": {"after_build": stats_built, "after_churn": stats_churned},
+        "snapshot": snap, "reference_snapshot": refsnap,
+        "custom_metric": custom,
         "beam_build": beam, "block_path": blockp, "fallback": fallb,
         "block_scores_phases": k2}}), flush=True)
     print(card, flush=True)

@@ -4,8 +4,7 @@ Counterpart of ``hnswindex_tpu/bindings_api.py``: same constructor (plus
 the torch ``device``), same metric strings, lazy initialization on the
 first ``add``, setters that raise once the index is initialized, and the
 same array shapes and dtypes (``add`` -> int32 ids; ``knn_query`` -> (n, k)
-int32 ids and float32 distances, -1/NaN padded).  Entry points not ported
-yet raise ``NotImplementedError``.
+int32 ids and float32 distances, -1/NaN padded).
 """
 
 from __future__ import annotations
@@ -133,11 +132,19 @@ class Index:
         return self._require_initialized().get_info()
 
     def get_connected_component_counts(self):
-        return self._require_initialized().get_connected_component_counts()
+        if self._impl is None:
+            return []
+        return self._impl.get_connected_component_counts()
 
     def serialize(self, path: str) -> None:
         self._require_initialized().serialize(path)
 
     @classmethod
-    def deserialize(cls, path: str) -> "Index":
-        return HNSWIndex.deserialize(path)
+    def deserialize(cls, path: str,
+                    device: torch.device | str = "cuda") -> "Index":
+        impl = HNSWIndex.deserialize(path, device)
+        idx = cls(impl.dim, impl.metric, device)
+        idx._impl = impl
+        idx._params = impl.params
+        idx._initialized = True
+        return idx

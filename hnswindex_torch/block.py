@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .core.snapshot import npz_path
 from .ops import distance as dst
 from .ops.block_scores import block_scores
 from .params import HNSWParameters
@@ -43,13 +44,6 @@ from .params import HNSWParameters
 _ASSIGN_CHUNK = 8192
 #: queries scored per launch by ``BlockIndex.knn_query`` (bounds the panel)
 QUERY_BATCH = 1024
-
-
-def npz_path(path) -> str:
-    """np.savez_compressed appends ".npz" when missing; loaders mirror that
-    so serialize("x") / deserialize("x") round-trips."""
-    p = str(path)
-    return p if p.endswith(".npz") else p + ".npz"
 
 
 def _kmeans_device(vecs: torch.Tensor, cents0: torch.Tensor, iters: int,
@@ -420,6 +414,9 @@ class BlockIndex:
                  device: torch.device | str = "cuda"):
         from .index import _check_full_f32
         dst.check_metric(metric)
+        if dst.is_custom(metric):
+            raise ValueError(
+                "BlockIndex requires a dot-decomposable built-in metric")
         if router not in ("exact", "hnsw"):
             raise ValueError("router must be 'exact' or 'hnsw'")
         self.device = torch.device(device)

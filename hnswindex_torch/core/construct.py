@@ -22,6 +22,9 @@ scatters.  A wave takes one of two paths, as the facade chooses:
 Connecting is ``_apply_connections``: heuristic prune, forward-row write,
 then ``_add_reverse`` appends the back edges and re-prunes rows that
 overflow their storage width (PruneOverflow, GraphConnector.cs:209-262).
+``normalize_base_rows`` re-prunes layer-0 rows past the 2M cap for the
+reference-format export.  A registered metric builds on the beam path
+only.
 
 The host slices each wave (index.HNSWIndex._insert_batch), so a wave holds
 exactly its members and carries no lane padding.  The tables are updated in
@@ -109,6 +112,29 @@ def _prune_rows_compact(cfg: GraphConfig, vlo, norms, target_ids, cand_ids,
         sel[take] = selc
         cnt[take] = cntc
     return sel, cnt
+
+
+def normalize_base_rows(cfg: GraphConfig, vlo, norms, nbr0, deg0,
+                        rows) -> None:
+    """Re-prune ``rows`` (host ints) of the layer-0 table back to the 2M
+    degree cap with the heuristic, in PruneOverflow's orientation, 4,096
+    rows at a time.  Writes ``nbr0``/``deg0`` in place: callers that export
+    a live graph pass copies.  The slack columns (``cfg.slack0``) let rows
+    hold up to 2M + slack0 edges between re-prunes; exports in the
+    reference's wire format (``to_reference_snapshot``) need rows at the
+    cap."""
+    K = nbr0.shape[1]
+    max_deg = 2 * cfg.max_edges
+    for i in range(0, len(rows), 4096):
+        r = torch.as_tensor(rows[i:i + 4096], dtype=torch.int64,
+                            device=nbr0.device)
+        sel, cnt = _prune_rows(cfg, vlo, norms, r, nbr0[r],
+                               torch.ones_like(r, dtype=torch.bool), max_deg)
+        row = torch.full((r.shape[0], K), -1, dtype=nbr0.dtype,
+                         device=nbr0.device)
+        row[:, :max_deg] = sel.to(nbr0.dtype)
+        nbr0[r] = row
+        deg0[r] = cnt.to(deg0.dtype)
 
 
 def _add_reverse(cfg: GraphConfig, vlo, norms, nbr_l, deg_l, src_ids, sel,

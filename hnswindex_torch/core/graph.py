@@ -7,7 +7,8 @@ shapes (C = capacity, D = dim, L = max levels, M = max_edges):
 * ``vlo_store`` — bf16 ranking copy, or a 0-row sentinel when ranking runs
   on ``vectors`` (read through ``vlo``);
 * ``coarse (C, D) bf16`` — mirror for the two-stage exact scan, or a 0-row
-  sentinel when ``vlo_store`` is already bf16;
+  sentinel when ``vlo_store`` is already bf16 or the metric is a
+  registered one (no exact path);
 * ``norms (C,) f32``, ``level (C,) i32`` (-1 = never used);
 * ``nbr0 (C, 2M+slack0) i32`` / ``deg0 (C,) i32`` — layer-0 out-edges,
   slots >= deg are -1;
@@ -134,18 +135,33 @@ def default_max_levels(capacity: int, distribution_rate: float) -> int:
     return max(4, int(exp_max) + 2)
 
 
+def make_vlo(rank_dtype: str, vectors: torch.Tensor) -> torch.Tensor:
+    """The ``vlo_store`` for ``vectors``: a cast copy for a bf16 ranking
+    table, or the 0-row sentinel when ranking reads ``vectors``."""
+    lo = _DTYPES[rank_dtype]
+    if lo == vectors.dtype:
+        return vectors.new_zeros((0,) + tuple(vectors.shape[1:]))
+    return vectors.to(lo)
+
+
+def make_coarse(cfg: GraphConfig, vectors: torch.Tensor) -> torch.Tensor:
+    """The ``coarse`` bf16 mirror of ``vectors``, or the 0-row sentinel when
+    no exact path exists (a registered metric) or ``vlo`` is bf16 already."""
+    if dst.is_custom(cfg.metric) or _DTYPES[cfg.rank_dtype] == torch.bfloat16:
+        return torch.zeros((0,) + tuple(vectors.shape[1:]),
+                           dtype=torch.bfloat16, device=vectors.device)
+    return vectors.to(torch.bfloat16)
+
+
 def empty_state(cfg: GraphConfig, capacity: int,
                 device: torch.device | str) -> GraphState:
     C, D, L = capacity, cfg.dim, cfg.max_levels
-    lo = _DTYPES[cfg.rank_dtype]
-    use_coarse = lo != torch.bfloat16
     i32 = dict(dtype=torch.int32, device=device)
+    vectors = torch.zeros((C, D), dtype=torch.float32, device=device)
     return GraphState(
-        vectors=torch.zeros((C, D), dtype=torch.float32, device=device),
-        vlo_store=torch.zeros((0 if lo == torch.float32 else C, D),
-                              dtype=lo, device=device),
-        coarse=torch.zeros((C if use_coarse else 0, D),
-                           dtype=torch.bfloat16, device=device),
+        vectors=vectors,
+        vlo_store=make_vlo(cfg.rank_dtype, vectors),
+        coarse=make_coarse(cfg, vectors),
         norms=torch.zeros((C,), dtype=torch.float32, device=device),
         level=torch.full((C,), -1, **i32),
         nbr0=torch.full((C, 2 * cfg.max_edges + cfg.slack0), -1, **i32),

@@ -12,7 +12,8 @@ The O(N^2) candidate distances are one batched product; the sequential
 accept is a scan over the sorted candidate columns.  The reference permutes
 its conflict tensor with one-hot bf16 products because TPU gathers are
 slow; here the candidates are gathered in sorted order before the product,
-which gives the same products in sorted positions.
+which gives the same products in sorted positions.  A registered metric
+evaluates its callable on the sorted candidates, a few columns at a time.
 """
 
 from __future__ import annotations
@@ -37,6 +38,26 @@ def _accept_cols(by_col: torch.Tensor) -> torch.Tensor:
     for c in range(N):
         acc[:, c] = ~torch.any(by_col[:, c, :c] & acc[:, :c], dim=1)
     return acc
+
+
+#: Bytes of the (B, cols, N, D) broadcast a registered metric's pairwise
+#: table is evaluated in: a few candidate columns at a time, never the
+#: whole (B, N, N, D).
+CUSTOM_CHUNK_BYTES = 256 << 20
+
+
+def _custom_by_col(fn, cv: torch.Tensor) -> torch.Tensor:
+    """(B, N, N) float32 table ``t[b, c, s] = fn(cv[b, s], cv[b, c])`` of a
+    registered metric over sorted candidates ``cv (B, N, D)``, evaluated
+    a group of columns c at a time (the reference maps one column at a
+    time; the values are the same elementwise evaluations)."""
+    B, N, D = cv.shape
+    step = max(1, CUSTOM_CHUNK_BYTES // max(1, B * N * D * 4))
+    out = torch.empty((B, N, N), dtype=torch.float32, device=cv.device)
+    for c0 in range(0, N, step):
+        c1 = min(N, c0 + step)
+        out[:, c0:c1] = fn(cv[:, None, :, :], cv[:, c0:c1, None, :]).float()
+    return out
 
 
 def prune(metric: str,
@@ -67,21 +88,26 @@ def prune(metric: str,
     svalid = torch.gather(valid, 1, order)
     sd = torch.gather(d, 1, order)
 
-    # pairwise distances among the candidates, taken in sorted order: each
-    # product is the same dot of the same two rows as in the unsorted
-    # order, and the table is symmetric, so by_col[b, c, s] = conflict of
-    # earlier s against c = pd[c, s] < d(c, target)
-    cv = torch.gather(cand_vecs.float(), 1,
-                      order[:, :, None].expand(B, N, cand_vecs.shape[2]))
-    sn = torch.gather(cand_norms, 1, order)
-    dots = torch.bmm(cv, cv.transpose(1, 2))
-    pd = dst.from_dot(metric, dots, sn[:, :, None], sn[:, None, :])
-
     n_valid = svalid.sum(dim=1)
     keep_all = n_valid < max_edges
 
-    # _accept_cols reads only s < c, and an invalid column c is dropped by
-    # the mask below, so only invalid earlier candidates s need masking
+    # by_col[b, c, s]: earlier candidate s conflicts with c, i.e.
+    # d(s, c) < d(c, target).  _accept_cols reads only s < c, and an
+    # invalid column c is dropped by the mask below, so only invalid
+    # earlier candidates s need masking
+    if dst.is_custom(metric):
+        cv = torch.gather(cand_vecs, 1,
+                          order[:, :, None].expand(B, N, cand_vecs.shape[2]))
+        pd = _custom_by_col(dst._CUSTOM_METRICS[metric], cv)
+    else:
+        # pairwise distances among the candidates, taken in sorted order:
+        # each product is the same dot of the same two rows as in the
+        # unsorted order, and the table is symmetric, so d(s, c) = pd[c, s]
+        cv = torch.gather(cand_vecs.float(), 1,
+                          order[:, :, None].expand(B, N, cand_vecs.shape[2]))
+        sn = torch.gather(cand_norms, 1, order)
+        dots = torch.bmm(cv, cv.transpose(1, 2))
+        pd = dst.from_dot(metric, dots, sn[:, :, None], sn[:, None, :])
     by_col = (pd < sd[:, :, None]) & svalid[:, None, :]
 
     accepted = _accept_cols(by_col) & svalid

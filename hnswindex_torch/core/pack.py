@@ -16,8 +16,9 @@ layer-0 neighbourhood out contiguously so one expansion is one tile fetch:
   most ``ENTRY_SCAN_MAX``, scored exactly against each query in place of
   the upper-layer greedy descent.
 
-``packed_knn_search`` serves unfiltered and mask-filtered queries for the
-built-in metrics; the custom-metric branch comes with ``register_metric``.
+``packed_knn_search`` serves unfiltered and mask-filtered queries.  A
+registered metric scores the entry set elementwise (``_entry_scan_custom``)
+and each expansion on neighbours rebuilt as ``u + r`` from their residuals.
 """
 
 from __future__ import annotations
@@ -119,6 +120,24 @@ def _entry_scan(cfg: GraphConfig, pack: QueryPack, q, qn, n_entry: int):
     return torch.where(fin, ed, _INF), torch.where(fin, ids, -1)
 
 
+def _entry_scan_custom(metric: str, pack: QueryPack, q, n_entry: int):
+    """_entry_scan for a registered metric, which has no dot decomposition:
+    the entry set is scored elementwise in chunks of 2,048 entries, which
+    bound the (B, chunk, D) broadcast.  Same contract as _entry_scan."""
+    S = pack.entry_vecs.shape[0]
+    chunk = min(S, 2048)
+    d = torch.cat([dst.exact(metric, q[:, None, :],
+                             pack.entry_vecs[None, r0:r0 + chunk]).float()
+                   for r0 in range(0, S, chunk)], dim=1)
+    d = torch.where(pack.entry_ids[None, :] >= 0, d, _INF)
+    R = min(n_entry, S)
+    ei = torch.argsort(d, dim=1, stable=True)[:, :R]
+    ed = torch.gather(d, 1, ei)
+    ids = pack.entry_ids.long()[ei]
+    fin = torch.isfinite(ed)
+    return torch.where(fin, ed, _INF), torch.where(fin, ids, -1)
+
+
 def packed_knn_search(cfg: GraphConfig, pack: QueryPack, q: torch.Tensor,
                       ef: int, max_iters: int, filtered: bool = False,
                       filter_mask=None, expand: int = 4, n_entry: int = 8):
@@ -142,7 +161,11 @@ def packed_knn_search(cfg: GraphConfig, pack: QueryPack, q: torch.Tensor,
     else:
         qh = q
     qn = dst.norm_data(cfg.metric, qh)
-    ed, eid = _entry_scan(cfg, pack, qh, qn, R)
+    custom = dst.is_custom(cfg.metric)
+    if custom:
+        ed, eid = _entry_scan_custom(cfg.metric, pack, qh, R)
+    else:
+        ed, eid = _entry_scan(cfg, pack, qh, qn, R)
 
     bd = torch.full((B, ef), _INF, dtype=torch.float32, device=dev)
     bi = torch.full((B, ef), -1, dtype=torch.int64, device=dev)
@@ -174,7 +197,13 @@ def packed_knn_search(cfg: GraphConfig, pack: QueryPack, q: torch.Tensor,
         rt = pack.res[eidc].float()                      # (B, P, K, D)
         at = pack.aux[eidc]                              # (B, P, K)
         uv = pack.base[eidc]                             # (B, P, D)
-        if sq:
+        if custom:
+            # no dot decomposition: rebuild each neighbour as u + r from
+            # its residual tile (the residual-rounded point, the pack's
+            # usual perturbation) and evaluate the metric elementwise
+            nv = uv[:, :, None, :] + rt
+            nd = dst.exact(cfg.metric, qh[:, None, None, :], nv).float()
+        elif sq:
             qres = qh[:, None, :] - uv                   # (B, P, D) f32
             du = torch.sum(qres * qres, dim=-1)          # exact ||q-u||^2
             qr = qres.to(pack.res.dtype).float()

@@ -42,10 +42,14 @@ def _dist_to_nodes(metric: str, q, qn, vectors, norms, ids):
     """Distances from each query ``q (B, D)`` to its own node ids: ``ids``
     is (B,) or (B, K).  ``vectors`` is the ranking table (float32 or
     bfloat16; a bfloat16 table takes the query at bfloat16 too, with
-    float32 sums)."""
+    float32 sums).  A registered metric's callable is evaluated on the
+    gathered rows."""
     C = vectors.shape[0]
     idc = ids.long().clamp(0, C - 1)
     if ids.dim() == 1:
+        if dst.is_custom(metric):
+            return dst.exact(metric, q.to(vectors.dtype),
+                             vectors[idc]).float()
         qc = q.to(vectors.dtype).float()
         dots = torch.sum(qc * vectors[idc].float(), dim=1)
         return dst.from_dot(metric, dots, qn, norms[idc])

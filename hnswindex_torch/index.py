@@ -15,11 +15,20 @@ candidates only.  Returned pairs are refined in full precision.  ``remove``
 repairs the graph (core/remove.py) and frees the slots for reuse;
 ``update`` is a remove and a reinsert into the same slots.
 
+A metric registered with ``ops.distance.register_metric`` builds every
+wave on the beam path and is served by the graph engines only: it has no
+exact scan (``exact=True`` raises, a callable filter makes no exact
+escalation, range pools climb their whole ladder) and no block fallback.
+``get_info`` and ``get_connected_component_counts`` come from
+core/stats.py; ``serialize``/``deserialize`` read and write the reference's
+``.npz`` (core/snapshot.py), ``to_reference_snapshot``/
+``from_reference_snapshot`` the .NET library's protobuf-net stream
+(core/refsnap.py), and ``from_host_snapshot`` the native host engine's
+file.
+
 The device owns the graph state; the host owns slot allocation and the free
 list, level sampling (numpy RNG, seeded exactly like the reference),
-capacity growth and the wave schedule.  What is not ported yet (custom
-metrics, stats, snapshots) raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+capacity growth and the wave schedule.
 """
 
 from __future__ import annotations
@@ -34,18 +43,16 @@ import torch
 from .core import construct as CS
 from .core import graph as G
 from .core import pack as PK
+from .core import refsnap as RS
 from .core import remove as RM
 from .core import search as SR
+from .core import snapshot as SN
+from .core import stats as ST
 from .ops import bruteforce as BF
 from .ops import distance as dst
 from .params import HNSWParameters
 from .utils.profiling import PhaseTimer
 from .utils.refine import refine_on_device, refine_pairs
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to hnswindex_torch yet (ROADMAP {item})")
 
 
 def resolve_rank_dtype(pref: str) -> str:
@@ -135,6 +142,39 @@ def _as_2d_f32(x, dim: int) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
+def _host_split_tables(st: G.GraphState):
+    """Host (nbr0, deg0, nbru, degu) arrays shaped like ``st``'s split
+    layer tables, empty (snapshot-import scaffolding)."""
+    C = st.capacity
+    return (np.full((C, st.nbr0.shape[1]), -1, np.int32),
+            np.zeros(C, np.int32),
+            np.full(tuple(st.nbru.shape), -1, np.int32),
+            np.zeros((st.nbru.shape[0], C), np.int32))
+
+
+def _write_node_edges(nbr0, deg0, nbru, degu, node: int, per_layer) -> None:
+    """Write one node's per-layer edge lists into the split host tables,
+    each cut at its layer's table width."""
+    for layer, e in enumerate(per_layer):
+        if layer == 0:
+            e = np.asarray(e, np.int32)[:nbr0.shape[1]]
+            nbr0[node, :e.size] = e
+            deg0[node] = e.size
+        elif layer - 1 < nbru.shape[0]:
+            e = np.asarray(e, np.int32)[:nbru.shape[2]]
+            nbru[layer - 1, node, :e.size] = e
+            degu[layer - 1, node] = e.size
+
+
+def _read_node_edges(nbr0, deg0, nbru, degu, node: int, top: int):
+    """One node's out-edge lists of layers 0..top from the host tables."""
+    outs = [nbr0[node, :deg0[node]].astype(np.int32)]
+    for layer in range(1, top + 1):
+        outs.append(nbru[layer - 1, node, :degu[layer - 1, node]]
+                    .astype(np.int32))
+    return outs
+
+
 def _check_full_f32(device: torch.device) -> None:
     """Distance products in float32 must not run in TF32."""
     if device.type != "cuda":
@@ -154,25 +194,30 @@ class HNSWIndex:
                  parameters: Optional[HNSWParameters] = None,
                  device: torch.device | str = "cuda"):
         dst.check_metric(metric)
-        self.device = torch.device(device)
-        _check_full_f32(self.device)
-        self.dim = int(dim)
-        self.metric = metric
-        self.params = parameters or HNSWParameters()
-        self.params.validate()
-
-        p = self.params
+        p = parameters or HNSWParameters()
+        p.validate()
         capacity = _alloc_capacity(p.collection_size)
-        self._cfg = G.GraphConfig(
-            dim=self.dim, metric=metric, max_edges=p.max_edges,
+        self._setup(dim, metric, p, device, G.GraphConfig(
+            dim=int(dim), metric=metric, max_edges=p.max_edges,
             max_levels=G.default_max_levels(capacity, p.distribution_rate),
             ef_construction=p.max_candidates,
             search_iter_factor=p.search_iter_factor,
             build_expand=p.build_expand,
             rank_dtype=resolve_rank_dtype(p.rank_dtype),
-            slack0=min(p.reverse_slack, p.max_edges // 2))
+            slack0=min(p.reverse_slack, p.max_edges // 2)))
         self._state = G.empty_state(self._cfg, capacity, self.device)
-        seed = p.random_seed if p.random_seed >= 0 else None
+
+    def _setup(self, dim: int, metric: str, params: HNSWParameters,
+               device, cfg: G.GraphConfig) -> None:
+        """Everything but the graph state: shared by ``__init__`` and the
+        snapshot loaders."""
+        self.device = torch.device(device)
+        _check_full_f32(self.device)
+        self.dim = int(dim)
+        self.metric = metric
+        self.params = params
+        self._cfg = cfg
+        seed = params.random_seed if params.random_seed >= 0 else None
         self._rng = np.random.default_rng(seed)
         self._length = 0             # high-water slot mark (GraphData.cs:25)
         self._free: List[int] = []   # freed slots, reused last-in first-out
@@ -182,7 +227,8 @@ class HNSWIndex:
         self._block_fb = None        # lazily built DeviceBlockTables
         self._host_vectors: Optional[np.ndarray] = None
         # upper-node panel: ids of every live node with level >= 1, in
-        # insertion order, with -1 holes where removed ids were
+        # insertion order, with -1 holes where removed ids were; a count
+        # of -1 marks a panel to rebuild from the state (after a load)
         self._upper_np = np.empty(0, np.int32)
         self._upper_pos: dict = {}   # id -> position in the panel
         self._upper_cnt = 0          # positions used (holes included)
@@ -250,11 +296,14 @@ class HNSWIndex:
         cut so that at most MAX_UPPER level>=1 members share a wave."""
         n = ids.shape[0]
         i = 0
+        # a registered metric builds every wave on the beam path, which
+        # does not read the upper-node panel
+        custom = dst.is_custom(self.metric)
         if self._count_host == 0:
             G.seed_first_node(self._cfg, self._state, int(ids[0]), a[0],
                               int(lvls[0]))
             self._scan_hwm = max(self._scan_hwm, int(ids[0]) + 1)
-            if lvls[0] >= 1:
+            if lvls[0] >= 1 and not custom:
                 self._panel_append(ids[:1])
             self._count_host = 1
             i = 1
@@ -262,7 +311,8 @@ class HNSWIndex:
             return
         # batch-wide: the panel may hold future-wave ids, which
         # upper_connect_exact masks out through `active`
-        self._panel_append(ids[i:][lvls[i:] >= 1])
+        if not custom:
+            self._panel_append(ids[i:][lvls[i:] >= 1])
         hwm = np.maximum.accumulate(ids[i:]) + 1
         dev = self.device
         ids_d = torch.as_tensor(ids.astype(np.int64)).to(dev)
@@ -289,10 +339,12 @@ class HNSWIndex:
                      full: bool) -> None:
         """One wave: store, connect upper members, connect layer 0; on the
         exact path while the corpus is at most ``exact_build_threshold``
-        rows, on the beam path past it (reference ``_insert_wave_dev``)."""
+        rows, on the beam path past it and always for a registered metric
+        (reference ``_insert_wave_dev``)."""
         cfg, st = self._cfg, self._state
         upt = torch.as_tensor(up).to(self.device) if up.size else None
-        if self._count_host > self.params.exact_build_threshold:
+        if self._count_host > self.params.exact_build_threshold or \
+                dst.is_custom(self.metric):
             self.wave_counts["beam"] += 1
             with self.timer.phase("beam_wave"):
                 CS.scatter_wave(cfg, st, wid, wvec, wlvl)
@@ -321,9 +373,18 @@ class HNSWIndex:
     def _panel_push(self) -> None:
         self._upper_ids = torch.tensor(self._upper_np, device=self.device)
 
+    def _panel_rebuild(self) -> None:
+        """The panel of a loaded index: its live level >= 1 rows in id
+        order."""
+        st = self._state
+        ids = torch.nonzero(st.active & (st.level >= 1)).flatten()
+        self._panel_fill(ids.cpu().numpy().astype(np.int32))
+
     def _panel_compact(self) -> None:
-        ids = np.fromiter(self._upper_pos.keys(), np.int32,
-                          len(self._upper_pos))
+        self._panel_fill(np.fromiter(self._upper_pos.keys(), np.int32,
+                                     len(self._upper_pos)))
+
+    def _panel_fill(self, ids: np.ndarray) -> None:
         self._upper_pos = {int(x): i for i, x in enumerate(ids)}
         self._upper_cnt = int(ids.size)
         self._upper_holes = 0
@@ -334,6 +395,11 @@ class HNSWIndex:
     def _panel_append(self, ids: np.ndarray) -> None:
         """Record newly inserted level>=1 node ids; an id already listed is
         not listed twice."""
+        if self._upper_cnt < 0:
+            # rebuilt before the batch's waves: this batch's ids are not
+            # active yet, except a seeded first node, which is dropped below
+            self._panel_rebuild()
+            self._panel_push()
         if ids.size and self._upper_pos:
             ids = ids[[int(x) not in self._upper_pos for x in ids]]
         n = int(ids.size)
@@ -356,7 +422,8 @@ class HNSWIndex:
     def _panel_remove(self, ids: np.ndarray) -> None:
         dead = [self._upper_pos.pop(int(x)) for x in ids
                 if int(x) in self._upper_pos]
-        if not dead:
+        if not dead or self._upper_cnt < 0:
+            # a panel still to rebuild reads the state after this removal
             return
         self._upper_np[dead] = -1
         self._upper_holes += len(dead)
@@ -487,14 +554,15 @@ class HNSWIndex:
         (block.build_device_block_tables: no host mirror) by routed block
         scoring, instead of the unpacked beam.
 
-        Engages only when ALL hold: params.block_fallback == "auto", the
-        pack path is enabled and would have been used (count >=
-        pack_min_count) but was refused for its budget.  Invalidated on
-        every mutation like the pack."""
+        Engages only when ALL hold: params.block_fallback == "auto", a
+        built-in metric, the pack path is enabled and would have been used
+        (count >= pack_min_count) but was refused for its budget.
+        Invalidated on every mutation like the pack."""
         if self._block_fb is not None:
             return self._block_fb
         p = self.params
         if (p.block_fallback != "auto" or p.pack_queries == "off"
+                or dst.is_custom(self.metric)
                 or self._count_host < p.pack_min_count):
             return None
         if self._get_pack() is not None or self._pack_refusal != "budget":
@@ -608,6 +676,11 @@ class HNSWIndex:
             return self._knn_query_callable(q, k, filter_fnc, layer, exact)
         fmask = self._build_filter_mask(filter_fnc)
         if exact:
+            if dst.is_custom(self.metric):
+                raise ValueError(
+                    "exact=True requires a dot-decomposable built-in "
+                    f"metric; custom metric {self.metric!r} is served by "
+                    "the graph path")
             return self._refine_batched(
                 q, self._exact_ids(q, k, layer, fmask), k)
         ef = max(self.params.min_nn, k)          # HNSWIndex.cs:115
@@ -652,7 +725,8 @@ class HNSWIndex:
         235-239; never a sweep of the corpus).  A query short of k passing
         results widens ``ef`` x4 up to ``min(4096, next_pow2(count))``; once
         the beams are saturated there, the queries still short get one exact
-        top-``ef`` scan before they are finalized.  Each round's finished
+        top-``ef`` scan before they are finalized (not for a registered
+        metric, which has no exact scan).  Each round's finished
         queries are refined in one batch.  Verdicts live in a table over the
         slots, so each id is judged once a call."""
         from .utils.predicates import BatchedPredicate
@@ -669,8 +743,10 @@ class HNSWIndex:
         pending = np.arange(n)
         ef = max(self.params.min_nn, 2 * k, 16)
         cap = min(4096, _next_pow2(max(self._count_host, 1)))
-        mode_exact = exact
-        can_escalate = not exact
+        # a registered metric has no exact scan: graph rounds only
+        custom = dst.is_custom(self.metric)
+        mode_exact = exact and not custom
+        can_escalate = not mode_exact and not custom
         while pending.size:
             sub = q[pending]
             if mode_exact:
@@ -761,7 +837,8 @@ class HNSWIndex:
         per-query (ids, dists) lists, ascending by distance.
 
         One exact count of in-radius rows (ops/bruteforce.range_count)
-        sizes each batch's result pool from RANGE_POOLS; queries whose
+        sizes each batch's result pool from RANGE_POOLS (a registered
+        metric has no count and climbs the whole ladder); queries whose
         count (plus the RANGE_SEED_EF seeds) reaches the top pool, and
         queries still saturated at it, are answered by an exact scan.  An
         id-list or mask filter applies on both paths; a callable is
@@ -775,12 +852,15 @@ class HNSWIndex:
         fmask = None if pred else self._build_filter_mask(filter_fnc)
         st = self._state
         r32 = float(np.float32(radius))
-        counts = np.empty(n, np.int64)
-        for i in range(0, n, QUERY_BATCH):
-            j = min(n, i + QUERY_BATCH)
-            counts[i:j] = BF.range_count(
-                self.metric, st.vlo, st.norms, st.active,
-                torch.as_tensor(q[i:j]).to(self.device), r32).cpu().numpy()
+        # a registered metric has no count: its pools climb the ladder
+        counts = np.full(n, -1, np.int64)
+        if not dst.is_custom(self.metric):
+            for i in range(0, n, QUERY_BATCH):
+                j = min(n, i + QUERY_BATCH)
+                counts[i:j] = BF.range_count(
+                    self.metric, st.vlo, st.norms, st.active,
+                    torch.as_tensor(q[i:j]).to(self.device),
+                    r32).cpu().numpy()
 
         ids_out: List[Optional[np.ndarray]] = [None] * n
         d_out: List[Optional[np.ndarray]] = [None] * n
@@ -837,6 +917,18 @@ class HNSWIndex:
         one (C,) transfer beyond."""
         st = self._state
         allowed = st.active if fmask is None else st.active & fmask
+        if dst.is_custom(self.metric):
+            # the float32 callable over the stored rows, on the device
+            qt = torch.as_tensor(q1).to(self.device)[None]
+            d = torch.cat([
+                dst.exact(self.metric, qt, st.vectors[c0:c0 + (1 << 16)])
+                .float() for c0 in range(0, st.capacity, 1 << 16)])
+            d = np.where(allowed.cpu().numpy(),
+                         d.cpu().numpy().astype(np.float64), np.inf)
+            hit = np.flatnonzero(d <= radius)
+            order = np.argsort(d[hit], kind="stable")
+            return (hit[order].astype(np.int32),
+                    d[hit][order].astype(np.float32))
         if not self._mirrorable():
             d = BF.range_distances(
                 self.metric, st.vectors, st.norms, allowed,
@@ -941,18 +1033,213 @@ class HNSWIndex:
         return self._count_host
 
     # ------------------------------------------------------------------
-    # outside the slice
+    # statistics and persistence
     # ------------------------------------------------------------------
 
-    def get_info(self):
-        raise _todo("get_info", "queue 1 item 11")
+    def get_info(self) -> ST.HNSWInfo:
+        """Per-layer degree statistics (HNSWIndex.cs:192-196)."""
+        return ST.graph_info(self._cfg, self._state,
+                             report_in_edges=self.params.allow_removals)
 
-    def get_connected_component_counts(self):
-        raise _todo("get_connected_component_counts", "queue 1 item 11")
+    def get_connected_component_counts(self) -> List[int]:
+        """Weak components per layer (HNSWIndex.cs:202-205)."""
+        return ST.connected_component_counts(self._cfg, self._state)
 
     def serialize(self, path: str) -> None:
-        raise _todo("serialize", "queue 1 item 11")
+        """Snapshot to ``path`` (".npz" appended when missing;
+        HNSWIndex.cs:210-217), in the reference's format."""
+        SN.save(path, self._cfg, self.params, self._state, self._length,
+                self._free, self.dim)
 
     @classmethod
-    def deserialize(cls, path: str) -> "HNSWIndex":
-        raise _todo("deserialize", "queue 1 item 11")
+    def deserialize(cls, path: str,
+                    device: torch.device | str = "cuda") -> "HNSWIndex":
+        """Restore a snapshot of either package (HNSWIndex.cs:222-229): the
+        ranking and coarse mirrors are rebuilt for the stored rank dtype,
+        the level RNG is re-seeded from ``random_seed`` and the upper-node
+        panel is rebuilt before the next add."""
+        header, params, state, free = SN.load(path, device)
+        idx = cls.__new__(cls)
+        idx._setup(header["dim"], header["metric"], params, device,
+                   G.GraphConfig(
+                       dim=header["dim"], metric=header["metric"],
+                       max_edges=params.max_edges,
+                       max_levels=header["max_levels"],
+                       ef_construction=params.max_candidates,
+                       search_iter_factor=params.search_iter_factor,
+                       build_expand=params.build_expand,
+                       rank_dtype=resolve_rank_dtype(params.rank_dtype),
+                       # the stored table's width is authoritative
+                       slack0=state.nbr0.shape[1] - 2 * params.max_edges))
+        state.vlo_store = G.make_vlo(idx._cfg.rank_dtype, state.vectors)
+        state.coarse = G.make_coarse(idx._cfg, state.vectors)
+        idx._state = state
+        idx._free = free
+        idx._length = idx._scan_hwm = header["length"]
+        idx._count_host = header["count"]
+        idx._upper_cnt = -1
+        return idx
+
+    @classmethod
+    def _at_capacity(cls, dim: int, metric: str, params: HNSWParameters,
+                     capacity: int, device) -> "HNSWIndex":
+        """An empty index allocated at a snapshot's ``capacity``.  Its
+        parameters keep the snapshot's ``collection_size`` (the reference
+        overwrites it with the capacity, so that a second export of a
+        loaded index differs from the first)."""
+        idx = cls(dim, metric, dataclasses.replace(
+            params, collection_size=max(capacity, 2)), device)
+        idx.params = params
+        return idx
+
+    def _install(self, vec: np.ndarray, lvl: np.ndarray, act: np.ndarray,
+                 tables, entry: int, count: int, length: int,
+                 free) -> None:
+        """Load host arrays (``tables`` = the split layer tables) into the
+        state of an index made at their capacity, and the host mirrors."""
+        dev = self.device
+        vj = torch.as_tensor(vec).to(dev)
+        nbr0, deg0, nbru, degu = (torch.as_tensor(t).to(dev) for t in tables)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._state = G.GraphState(
+            vectors=vj, vlo_store=G.make_vlo(self._cfg.rank_dtype, vj),
+            coarse=G.make_coarse(self._cfg, vj),
+            norms=dst.norm_data(self.metric, vj),
+            level=torch.as_tensor(lvl).to(dev), nbr0=nbr0, deg0=deg0,
+            nbru=nbru, degu=degu, active=torch.as_tensor(act).to(dev),
+            ep=torch.tensor(entry, **i32), count=torch.tensor(count, **i32))
+        self._length = self._scan_hwm = int(length)
+        self._free = [int(x) for x in free]
+        self._count_host = int(count)
+        self._panel_append(np.flatnonzero(act & (lvl >= 1)).astype(np.int32))
+
+    @classmethod
+    def from_host_snapshot(cls, path: str,
+                           device: torch.device | str = "cuda"
+                           ) -> "HNSWIndex":
+        """Import a snapshot of the native C++ host engine
+        (``hnswindex_tpu/native/hnsw_host.cpp``): built on a CPU, served
+        here.  The graph semantics are the same, so queries work at once
+        and the index stays mutable."""
+        (params, metric, dim, capacity, length, entry, count, free,
+         levels, removed, vectors, edges) = SN.load_host_snapshot(path)
+        idx = cls._at_capacity(dim, metric, params, capacity, device)
+        idx._grow_to(length)
+        C, L = idx._state.capacity, idx._state.num_levels
+        tables = _host_split_tables(idx._state)
+        lvl = np.full(C, -1, np.int32)
+        act = np.zeros(C, bool)
+        vec = np.zeros((C, dim), np.float32)
+        for i in range(length):
+            if levels[i] < 0:
+                continue
+            vec[i] = vectors[i]
+            lvl[i] = min(int(levels[i]), L - 1)
+            act[i] = not removed[i]
+            _write_node_edges(*tables, i, edges[i][:L])
+        idx._install(vec, lvl, act, tables, entry, count, length, free)
+        return idx
+
+    def to_reference_snapshot(self, path: str) -> None:
+        """Write a snapshot in the reference's protobuf-net wire format
+        (HNSWIndexSnapshot.cs + GraphDataSnapshot.cs), loadable by the .NET
+        library's ``HNSWIndex<float[], float>.Deserialize``.  Layer-0 rows
+        over the 2M cap (the ``reverse_slack`` columns) are re-pruned on a
+        copy; freed slots are written as removed nodes; in-edge lists
+        (with removals allowed) come from transposing the out-edges."""
+        st = self._state
+        cap0 = 2 * self.params.max_edges
+        deg0 = st.deg0.cpu().numpy()
+        over = np.flatnonzero(deg0[:self._length] > cap0)
+        if over.size:
+            nbr0_t, deg0_t = st.nbr0.clone(), st.deg0.clone()
+            CS.normalize_base_rows(self._cfg, st.vlo, st.norms, nbr0_t,
+                                   deg0_t, over)
+            nbr0, deg0 = nbr0_t.cpu().numpy(), deg0_t.cpu().numpy()
+        else:
+            nbr0 = st.nbr0.cpu().numpy()
+        nbr0 = nbr0[:, :cap0]
+        nbru = st.nbru.cpu().numpy()
+        degu = st.degu.cpu().numpy()
+        lvl = st.level.cpu().numpy()
+        act = st.active.cpu().numpy()
+        vec = self._host_vecs()
+        length = self._length
+        freed = set(self._free)
+        with_in = self.params.allow_removals
+
+        in_lists: List[dict] = [{} for _ in range(st.num_levels)]
+        for layer in range(st.num_levels if with_in else 0):
+            nbr_l, deg_l = (nbr0, deg0) if layer == 0 else \
+                (nbru[layer - 1], degu[layer - 1])
+            on = np.flatnonzero(act & (lvl >= layer))
+            d = deg_l[on]
+            if on.size == 0 or d.sum() == 0:
+                continue
+            srcs = np.repeat(on, d).astype(np.int32)
+            cols = np.concatenate([nbr_l[u, :deg_l[u]] for u in on])
+            order = np.argsort(cols, kind="stable")
+            cols_s, srcs_s = cols[order], srcs[order]
+            bounds = np.searchsorted(cols_s, np.arange(st.capacity + 1))
+            in_lists[layer] = {v: srcs_s[bounds[v]:bounds[v + 1]]
+                               for v in np.unique(cols_s)}
+
+        empty = np.empty(0, np.int32)
+        nodes = []
+        for s in range(length):
+            if s in freed or not act[s]:
+                # the reference keeps a freed slot's Node with IsRemoved
+                # set and empty edge lists
+                top = max(int(lvl[s]), 0)
+                nodes.append(RS.RefNode(
+                    id=s, is_removed=True, out_edges=[empty] * (top + 1),
+                    in_edges=[empty] * (top + 1) if with_in else []))
+                continue
+            top = int(lvl[s])
+            ins = [np.asarray(in_lists[layer].get(s, empty), np.int32)
+                   for layer in range(top + 1)] if with_in else []
+            nodes.append(RS.RefNode(
+                id=s, is_removed=False, in_edges=ins,
+                out_edges=_read_node_edges(nbr0, deg0, nbru, degu, s, top)))
+
+        RS.write_snapshot(path, RS.RefSnapshot(
+            params=self.params, nodes=nodes,
+            items=[vec[s] for s in range(length)],
+            active=np.flatnonzero(act[:length]).astype(np.int32),
+            removed=list(self._free), entry_point=int(st.ep),
+            capacity=st.capacity, length=length, count=self._count_host))
+
+    @classmethod
+    def from_reference_snapshot(cls, path: str, metric: str = "sq_euclid",
+                                device: torch.device | str = "cuda"
+                                ) -> "HNSWIndex":
+        """Load a snapshot written by the reference .NET library
+        (``index.Serialize(path)``, HNSWIndex.cs:210-217) or by
+        ``to_reference_snapshot``.  The distance function is code, not
+        data, in the reference (re-supplied at Deserialize,
+        HNSWIndex.cs:222), so ``metric`` is an argument."""
+        snap = RS.read_snapshot(path)
+        if not snap.items:
+            raise ValueError("reference snapshot holds no items")
+        dim = int(snap.items[0].size)
+        idx = cls._at_capacity(dim, metric, snap.params, snap.capacity,
+                               device)
+        idx._grow_to(max(snap.length, 1))
+        C, L = idx._state.capacity, idx._state.num_levels
+        tables = _host_split_tables(idx._state)
+        lvl = np.full(C, -1, np.int32)
+        act = np.zeros(C, bool)
+        vec = np.zeros((C, dim), np.float32)
+        active_set = set(int(x) for x in snap.active)
+        for i, node in enumerate(snap.nodes):
+            s = node.id
+            if s < 0 or s >= C:
+                continue
+            if i < len(snap.items):
+                vec[s] = snap.items[i]
+            lvl[s] = min(node.max_layer, L - 1)
+            act[s] = (not node.is_removed) and (s in active_set)
+            _write_node_edges(*tables, s, node.out_edges[:L])
+        idx._install(vec, lvl, act, tables, snap.entry_point, snap.count,
+                     snap.length, snap.removed)
+        return idx

@@ -13,6 +13,9 @@ Counterpart of ``hnswindex_tpu/ops/bruteforce.py``:
 * ``range_distances`` / ``range_count`` — blocked float32 scans that give
   one query's in-radius distances and each query's in-radius count (the
   facade's exact range path and its pool sizing).
+
+Each needs a dot-decomposable metric and raises ``ValueError`` for a
+registered one.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ def exact_knn(metric: str, vectors: torch.Tensor, norms: torch.Tensor,
     ``vectors (C, D)``, ``norms (C,)``, ``active (C,) bool``, ``q (B, D)``.
     Optional ``exclude (B,)`` masks one id per query.  Returns
     (dists (B, k) f32, ids (B, k) i64) ascending, -1/inf padded."""
+    if dst.is_custom(metric):
+        raise ValueError("exact_knn requires a dot-decomposable metric")
     C = vectors.shape[0]
     B = q.shape[0]
     qn = dst.norm_data(metric, q)
@@ -98,6 +103,8 @@ def exact_knn2(metric: str, vectors: torch.Tensor, coarse: torch.Tensor,
     ``FUSED_BS``).  A true neighbour is lost when a row of its lane ranks
     below it on the bf16 products, so more lanes lose fewer; the build
     keeps the reference's 1,024, the exact query takes more."""
+    if dst.is_custom(metric):
+        raise ValueError("exact_knn2 requires a dot-decomposable metric")
     from .fused_scan import lane_min_scan, rank_transform
 
     Cs = coarse.shape[0]
@@ -178,6 +185,9 @@ def range_distances(metric: str, vectors: torch.Tensor, norms: torch.Tensor,
     """(C,) float32 distances of one query ``q1 (D,)`` to every active row
     within ``radius``, inf elsewhere (the exact range path for corpora too
     large to mirror on the host)."""
+    if dst.is_custom(metric):
+        raise ValueError("range_distances requires a dot-decomposable "
+                         "metric")
     C = vectors.shape[0]
     r = torch.tensor(radius, dtype=torch.float32, device=vectors.device)
     qn = dst.norm_data(metric, q1[None])[0]
@@ -195,6 +205,8 @@ def range_count(metric: str, vectors: torch.Tensor, norms: torch.Tensor,
                 block: int = _BLOCK) -> torch.Tensor:
     """(B,) int64 count of active rows within ``radius`` of each query,
     one blocked scan (sizes the range-search pool up front)."""
+    if dst.is_custom(metric):
+        raise ValueError("range_count requires a dot-decomposable metric")
     C = vectors.shape[0]
     r = torch.tensor(radius, dtype=torch.float32, device=vectors.device)
     qn = dst.norm_data(metric, q)

@@ -16,6 +16,9 @@ bfloat16 operands are products of bf16 values accumulated in float32 (the
 reference's ``preferred_element_type=f32``): they are widened to float32
 before the product, because a bf16 ``torch.matmul`` also rounds its output
 to bf16.
+
+A metric registered with ``register_metric`` is a torch callable, evaluated
+elementwise wherever it is taken; its norm data are zeros.
 """
 
 from __future__ import annotations
@@ -24,23 +27,35 @@ import torch
 
 VALID_METRICS = ("sq_euclid", "cosine", "ucosine")
 
+#: User-registered metrics: name -> torch callable ``fn(a, b) -> d`` that
+#: broadcasts over the leading dims and reduces the last (the reference's
+#: "pass any Func<TVector, TVector, TDistance>", HNSWIndex.cs:20).  A
+#: registered metric has no dot decomposition: graph search, both build
+#: paths' beam form, removal, range queries and the packed engine evaluate
+#: it elementwise; the exact scans and the block path refuse it.
+_CUSTOM_METRICS: dict = {}
+
 
 def register_metric(name: str, fn) -> None:
-    """Custom metrics run the beam-path build and the custom pack branch,
-    neither of which is ported yet."""
-    raise NotImplementedError(
-        "custom metrics are not ported yet (ROADMAP queue 1 item 9)")
+    """Register a custom distance ``fn(a, b) -> d``: a torch callable,
+    called with tensors on the index's device, broadcasting over leading
+    dims and reducing the last."""
+    if name in VALID_METRICS:
+        raise ValueError(f"{name!r} is a built-in metric")
+    if not callable(fn):
+        raise TypeError("fn must be callable")
+    _CUSTOM_METRICS[name] = fn
 
 
 def is_custom(metric: str) -> bool:
-    """True for a registered metric; the built-ins are dot-decomposable."""
-    return metric not in VALID_METRICS
+    return metric in _CUSTOM_METRICS
 
 
 def check_metric(metric: str) -> None:
-    if metric not in VALID_METRICS:
+    if metric not in VALID_METRICS and metric not in _CUSTOM_METRICS:
         raise ValueError(
-            f"unknown metric {metric!r}; expected one of {VALID_METRICS}")
+            f"unknown metric {metric!r}; expected one of {VALID_METRICS} "
+            f"or a name registered via register_metric()")
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -74,6 +89,8 @@ def from_dot(metric: str, dot, qn, cn):
 def pairwise(metric: str, q: torch.Tensor, x: torch.Tensor,
              qn=None, xn=None) -> torch.Tensor:
     """All-pairs distances ``(B, D) x (N, D) -> (B, N)``."""
+    if metric in _CUSTOM_METRICS:
+        return _CUSTOM_METRICS[metric](q[:, None, :], x[None, :, :]).float()
     dots = _f32(q) @ _f32(x).T
     if qn is None:
         qn = norm_data(metric, q)
@@ -86,7 +103,11 @@ def gathered(metric: str, q: torch.Tensor, qn: torch.Tensor,
              cvecs: torch.Tensor, cn: torch.Tensor) -> torch.Tensor:
     """Distances from each query to its own candidates:
     ``q (B, D)``, ``cvecs (B, K, D)`` -> ``(B, K)``.  A bf16 candidate table
-    takes the query at bf16 too (reference ``gathered``)."""
+    takes the query at bf16 too (reference ``gathered``); so does a
+    registered metric's callable."""
+    if metric in _CUSTOM_METRICS:
+        return _CUSTOM_METRICS[metric](q[:, None, :].to(cvecs.dtype),
+                                       cvecs).float()
     qc = q.to(cvecs.dtype)
     dots = torch.bmm(_f32(cvecs), _f32(qc)[:, :, None])[:, :, 0]
     return from_dot(metric, dots, qn[:, None], cn)
@@ -95,6 +116,8 @@ def gathered(metric: str, q: torch.Tensor, qn: torch.Tensor,
 def exact(metric: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Direct-formula distance, broadcasting over leading dims (oracles and
     result refinement)."""
+    if metric in _CUSTOM_METRICS:
+        return _CUSTOM_METRICS[metric](a, b)
     if metric == "sq_euclid":
         d = a - b
         return torch.sum(d * d, dim=-1)

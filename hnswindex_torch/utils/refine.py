@@ -6,7 +6,8 @@ recomputed with the direct metric formula and re-sorted (the reference's
 metric_test.py oracle tolerance is 1e-5):
 
 * ``refine_pairs`` — float64 on the host against a host mirror of the
-  stored vectors, while the corpus is small enough to mirror;
+  stored vectors, while the corpus is small enough to mirror (a registered
+  metric's callable runs in float32 on CPU tensors, as in the reference);
 * ``refine_on_device`` — direct-formula float32 on the device, moving only
   the final (B, k) pairs to the host.
 """
@@ -38,7 +39,14 @@ def refine_pairs(metric: str, q: np.ndarray, ids: np.ndarray,
         cand_vecs = np.pad(cand_vecs, ((0, 0), (0, pad), (0, 0)))
     vecs = cand_vecs.astype(np.float64)
     qq = q.astype(np.float64)[:, None, :]
-    if metric == "sq_euclid":
+    if dst.is_custom(metric):
+        # a registered callable runs in float32 on CPU tensors, as the
+        # reference evaluates it in float32
+        d = dst.exact(metric,
+                      torch.from_numpy(np.asarray(q, np.float32)[:, None]),
+                      torch.from_numpy(np.asarray(cand_vecs, np.float32)))
+        d = d.numpy().astype(np.float64)
+    elif metric == "sq_euclid":
         d = np.sum((qq - vecs) ** 2, axis=-1)
     else:
         dot = np.sum(qq * vecs, axis=-1)

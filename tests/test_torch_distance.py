@@ -72,8 +72,27 @@ def test_bf16_candidates_multiply_in_f32():
 
 
 def test_metric_validation():
+    """Names and registration behave as in the reference: a registered L1
+    (torch in the port, jnp in the reference) passes ``check_metric`` and
+    gives the reference's pairwise distances; a built-in name and a value
+    that cannot be called are refused alike."""
     tdst.check_metric("cosine")
     with pytest.raises(ValueError):
         tdst.check_metric("manhattan")
-    with pytest.raises(NotImplementedError):
-        tdst.register_metric("l1", lambda a, b: a)
+    tdst.register_metric("l1_validation",
+                         lambda a, b: torch.sum(torch.abs(a - b), dim=-1))
+    jdst.register_metric("l1_validation",
+                         lambda a, b: jnp.sum(jnp.abs(a - b), axis=-1))
+    tdst.check_metric("l1_validation")
+    q, x = _inputs("sq_euclid", 16)
+    np.testing.assert_allclose(
+        tdst.pairwise("l1_validation", torch.from_numpy(q),
+                      torch.from_numpy(x)).numpy(),
+        np.asarray(jdst.pairwise("l1_validation", jnp.asarray(q),
+                                 jnp.asarray(x))), **TOL)
+    for mod, err, name, fn in ((tdst, ValueError, "cosine", abs),
+                               (jdst, ValueError, "cosine", abs),
+                               (tdst, TypeError, "not_callable", 3),
+                               (jdst, TypeError, "not_callable", 3)):
+        with pytest.raises(err):
+            mod.register_metric(name, fn)

@@ -1,14 +1,18 @@
 """Facade parity: hnswindex_torch.Index / HNSWIndex against hnswindex_tpu's
 on the main path (add, then unfiltered layer-0 knn_query through the
 pack), on the unpacked engine's calls (knn_query without the pack, at
-layer > 0 and exact, range_query, multi_layer_knn_query), remove, update
-and filters on the reference's graph, and the contract that every call not
-ported yet raises.
+layer > 0 and exact, range_query, multi_layer_knn_query), remove, update,
+filters, statistics, ``.npz`` snapshots and a registered metric on the
+reference's graph.
 
 Bars: the reference quickstart's shape (2,000 x 128, sq_euclid, M=16, k=1,
 on the bench's clustered corpus) has self-recall > 0.85 (on its first
 1,000 items) in both packages (GraphTests.cs:28); recall@10 on a
 5,000-row clustered corpus is within 0.01 of the reference's."""
+
+import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -211,43 +215,91 @@ def _multi_layer_matches(pair):
                                      ti_[None], ji_[None]).all()
 
 
-#: calls the unpacked engine's slice and the removal slice ported: their
-#: cases now check the answer against the reference's
+def _get_info_matches(pair):
+    ji, ti, _, _ = pair
+    got = [dataclasses.asdict(x) for x in ti.get_info().layers]
+    assert got == [dataclasses.asdict(x) for x in ji.get_info().layers]
+    assert got[0]["nodes_count"] == TCT.N
+
+
+def _components_match(pair):
+    ji, ti, _, _ = pair
+    assert ti.get_connected_component_counts() == \
+        ji.get_connected_component_counts()
+
+
+def _serialize_matches(pair):
+    """The port's file, read by the reference, answers as the reference's
+    own index does."""
+    ji, ti, vecs, q = pair
+    with tempfile.TemporaryDirectory() as d:
+        ti.serialize(os.path.join(d, "port"))
+        jl = J.HNSWIndex.deserialize(os.path.join(d, "port.npz"))
+    for a, b in zip(jl.knn_query(q, 10), ji.knn_query(q, 10)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _deserialize_matches(pair):
+    """The reference's file, read by the port's drop-in ``Index``, answers
+    as the port's index holding the same graph does."""
+    ji, ti, vecs, q = pair
+    with tempfile.TemporaryDirectory() as d:
+        ji.serialize(os.path.join(d, "ref.npz"))
+        tl = T.Index.deserialize(os.path.join(d, "ref.npz"), device="cpu")
+    assert isinstance(tl, T.Index) and tl.count == ti.count
+    for a, b in zip(tl.knn_query(q, 10), ti.knn_query(q, 10)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _register_metric_matches(pair):
+    """Squared L2 registered as a torch callable and served on the
+    reference's graph by the custom branches (the pack's elementwise entry
+    scan and expansion) against the reference's sq_euclid answers: the
+    same ids up to near-tie swaps on >= 0.98 of the rows (measured 0.99:
+    one walk of 100 ends on another tenth neighbour), the same recall@10
+    within 0.01 (measured equal, 0.931), distances ascending and equal to
+    the reference's where the ids agree."""
+    ji, _, vecs, q = pair
+    T.register_metric("sq_callable",
+                      lambda a, b: torch.sum((a - b) ** 2, dim=-1))
+    ti = TTS.installed(ji)
+    ti.metric = "sq_callable"
+    ti._cfg = dataclasses.replace(ti._cfg, metric="sq_callable")
+    assert T.ops.distance.is_custom(ti.metric)
+    tids, td = ti.knn_query(q, 10)
+    jids, jd = ji.knn_query(q, 10)
+    assert ti._pack is not None
+    assert TTS.near_tie_rows("sq_euclid", q, vecs, tids, jids).mean() >= 0.98
+    same = tids == jids
+    np.testing.assert_allclose(td[same], jd[same], rtol=1e-5, atol=1e-5)
+    assert (np.diff(td, axis=1) >= 0).all()
+    gt = TTS.d64("sq_euclid", q, vecs, np.broadcast_to(
+        np.arange(len(vecs)), (len(q), len(vecs)))).argsort(1)[:, :10]
+    rec = [np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, gt)])
+           for ids in (tids, jids)]
+    assert abs(rec[0] - rec[1]) <= 0.01, rec
+
+
+#: calls the later slices ported: their cases now check the answer against
+#: the reference's
 _PORTED = {"range_query": _range_matches, "multi_layer": _multi_layer_matches,
            "layer": _layer_matches, "exact": _exact_matches,
            "remove": _remove_matches, "update": _update_matches,
-           "filter": _filter_matches}
+           "filter": _filter_matches, "get_info": _get_info_matches,
+           "components": _components_match, "serialize": _serialize_matches,
+           "deserialize": _deserialize_matches,
+           "register_metric": _register_metric_matches}
 
 
 @pytest.mark.parametrize("call", [
-    "remove",
-    "update",
-    "range_query",
-    "multi_layer",
-    lambda i, v: i.get_info(),
-    lambda i, v: i.get_connected_component_counts(),
-    lambda i, v: i.serialize("unused.bin"),
-    lambda i, v: T.Index.deserialize("unused.bin"),
-    "filter",
-    "layer",
-    "exact",
-    lambda i, v: T.ops.distance.register_metric("l1", lambda a, b: a),
-], ids=["remove", "update", "range_query", "multi_layer", "get_info",
-        "components", "serialize", "deserialize", "filter", "layer",
-        "exact", "register_metric"])
-def test_out_of_slice_calls_raise(small, request, call):
-    """Calls outside the ported slices raise NotImplementedError naming
-    their ROADMAP item.  The calls the unpacked engine ported (range_query,
-    multi_layer_knn_query, knn_query at layer > 0 and exact=True) and the
-    removal slice ported (remove, update, filters) keep their cases, which
-    now hold the answer against the reference's on the reference's
-    graph."""
-    if isinstance(call, str):
-        _PORTED[call](request.getfixturevalue("pair"))
-        return
-    idx, vecs = small
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(idx, vecs)
+    "remove", "update", "range_query", "multi_layer", "get_info",
+    "components", "serialize", "deserialize", "filter", "layer", "exact",
+    "register_metric"])
+def test_out_of_slice_calls_raise(pair, call):
+    """The calls that were outside the ported slices keep their cases: each
+    now holds the port's answer against the reference's on the reference's
+    graph (none raises any more)."""
+    _PORTED[call](pair)
 
 
 @pytest.mark.parametrize("setting", ["auto", "off", "budget", "threshold"])
