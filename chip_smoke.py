@@ -133,6 +133,37 @@
     These phases launch no kernel: a registered metric has no exact scan
     and no block path, and statistics and snapshots are reductions and
     host I/O.
+15. The sharded front ends, run after every earlier phase, on the same
+    corpus with ``devices=["cuda:0", "cuda:0"]`` (two shards on the one
+    card).  ``ShardedIndex`` build of the 1M rows (M=16, efConstruction=100,
+    max_wave_size=512, so 256-row waves a shard): inserts/s, the waves,
+    each shard's phase split and K1's launches in the build (0 expected:
+    a shard's scan prefix, 507,904 rows, stays under BUILD_SCAN2_MIN).
+    Packed ``knn_query(k=10)`` on 10,000 rows: q/s, recall@10 >= 0.90, the
+    per-shard packs built; unpacked at ef 64, recall@10 >= 0.87;
+    ``exact=True``: recall@10 >= 0.99, K1 launched on that path, and K1
+    held against its plain version on shard 0's own inputs (B=1,024, 4,096
+    lanes, its 507,904-row prefix) with the exact phase's bars; a seeded
+    50% id mask on the packed path, recall@10 >= 0.80 against the exact
+    top-10 over the allowed rows; ``range_query`` on 1,000 rows (phase 5's
+    checks).  ``remove`` of 50,000 seeded gids: removals/s, no live edge
+    into a removed slot on either shard, no removed gid returned, post/pre
+    recall@10 of 1,000 surviving rows >= 0.98; ``update`` of 5,000 rows
+    (gids and count unchanged, the stored vectors the new ones, recall@1
+    by the new vectors >= 0.85 at ef 64).  ``get_info`` (layer 0 holds
+    every live row) and component counts (two at layer 0, one a shard),
+    then a ``.npz`` round trip onto the same devices whose 1,000 answers
+    are identical.
+16. ``ShardedBlockIndex`` of the 1M rows at 128-row blocks on the same two
+    shards: ``knn_query(k=10, n_probe=32)`` on 10,000 rows, q/s, recall@10
+    >= 0.90 and within 0.005 of phase 7's ``BlockIndex``, K2 launched
+    (> 0); K2 held against its plain version on shard 0's own local
+    probe table for the first 1,024 queries (the panel with the bars of
+    K2's kernel phase in 3., and its top-10 against the plain
+    ``_score_blocks``: values within the same bars, and every id that
+    differs a near-tie, float64 distances within the same bars), timed
+    beside its bound; then 10,000 rows added (they
+    find themselves) and 10,000 removed (they never come back).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 non-zero before it.  Without a CUDA device the script exits non-zero and
@@ -168,6 +199,8 @@ N_BEAM = 200_000            # rows of the beam-path build
 N_CUSTOM = 200_000          # rows of the custom-metric (L1) build
 BEAM_THRESHOLD = 20_000     # its exact_build_threshold (default 2^24)
 NQ_SMALL = 1_000            # queries of the layer-1, range and k=300 phases
+N_SHARD_REMOVE = 50_000     # gids the sharded removal takes
+N_SHARD_UPDATE = 5_000      # rows the sharded update moves
 # published peaks of one H100 SXM: bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -634,6 +667,46 @@ def layer1_phase(index, vecs, xd) -> dict:
     return dict(rows=n1, queries_per_s=NQ_SMALL / s, recall_at_10=recall)
 
 
+def k1_exact_shape(what: str, ct, norms, active, qrows: np.ndarray) -> dict:
+    """K1 as the exact query launches it (B=1,024 queries, EXACT_LANES
+    lanes, no exclusion) on a coarse table ``ct`` and its norms and live
+    mask, held against its plain version with the kernel phase's bars and
+    timed beside it."""
+    import torch
+    from hnswindex_torch.index import EXACT_LANES
+    from hnswindex_torch.ops import fused_scan as FS
+
+    mult, bias = FS.rank_transform("sq_euclid", norms, active)
+    q = torch.as_tensor(qrows, device="cuda")
+    B = q.shape[0]
+    excl = torch.full((B,), -1, dtype=torch.int32, device="cuda")
+    kv, ki = FS.lane_min_scan(ct, mult, bias, q, excl, BS=EXACT_LANES)
+    rv, ri = FS.lane_min_scan_ref(ct, mult, bias, q, excl, BS=EXACT_LANES)
+    live = rv < FS.DEAD
+    err = (kv[live] - rv[live]).abs()
+    agree = (ki[live] == ri[live]).float().mean().item()
+    if not torch.equal(kv < FS.DEAD, live) or agree < 0.999 or \
+            bool((err > 1e-4 + 1e-4 * rv[live].abs()).any()):
+        fail(f"K1 at the {what}: max abs err {err.max().item()}, id "
+             f"agreement {agree}")
+    ms = time_ms(lambda: FS.lane_min_scan(ct, mult, bias, q, excl,
+                                          BS=EXACT_LANES), 10)
+    plain_ms = time_ms(lambda: FS.lane_min_scan_ref(ct, mult, bias, q, excl,
+                                                    BS=EXACT_LANES), 3)
+    C = ct.shape[0]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (ct, mult, bias, q, excl, kv, ki))
+    k1 = dict(C=C, B=B, BS=EXACT_LANES, max_abs_err=err.max().item(),
+              id_agree=agree, ms=ms, plain_ms=plain_ms, library_ms=None,
+              **bound(2.0 * B * C * D, PEAK_BF16, nbytes))
+    print(f"kernel phase K1 {what} C={C} B={B} D={D} BS={EXACT_LANES}: "
+          f"max_abs_err={k1['max_abs_err']:.3e} id_agree={agree:.6f} kernel "
+          f"{ms:.3f} ms ({ms / B * 1e3:.2f} us a query) plain "
+          f"{plain_ms:.3f} ms bound {k1['bound_ms']:.4f} ms "
+          f"({k1['bound_by']})", flush=True)
+    return k1
+
+
 def exact_phase(index, vecs, gt, xd) -> dict:
     """knn_query(exact=True): k=10 through the lane-min kernel (counted),
     then K1 held against its plain version on this path's own inputs and
@@ -668,36 +741,8 @@ def exact_phase(index, vecs, gt, xd) -> dict:
           f"{recall1024:.4f}, at {EXACT_LANES} lanes {recall:.4f}",
           flush=True)
 
-    mult, bias = FS.rank_transform("sq_euclid", st.norms, st.active)
-    q = torch.as_tensor(vecs[:1024], device="cuda")
-    excl = torch.full((1024,), -1, dtype=torch.int32, device="cuda")
-    ct = st.coarse_table
-    kv, ki = FS.lane_min_scan(ct, mult, bias, q, excl, BS=EXACT_LANES)
-    rv, ri = FS.lane_min_scan_ref(ct, mult, bias, q, excl, BS=EXACT_LANES)
-    live = rv < FS.DEAD
-    err = (kv[live] - rv[live]).abs()
-    agree = (ki[live] == ri[live]).float().mean().item()
-    if not torch.equal(kv < FS.DEAD, live) or agree < 0.999 or \
-            bool((err > 1e-4 + 1e-4 * rv[live].abs()).any()):
-        fail(f"K1 at the exact query's shape: max abs err "
-             f"{err.max().item()}, id agreement {agree}")
-    ms = time_ms(lambda: FS.lane_min_scan(ct, mult, bias, q, excl,
-                                          BS=EXACT_LANES), 10)
-    plain_ms = time_ms(lambda: FS.lane_min_scan_ref(ct, mult, bias, q, excl,
-                                                    BS=EXACT_LANES), 3)
-    C = ct.shape[0]
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (ct, mult, bias, q, excl, kv, ki))
-    k1 = dict(C=C, B=1024, BS=EXACT_LANES, max_abs_err=err.max().item(),
-              id_agree=agree,
-              ms=ms, plain_ms=plain_ms, library_ms=None,
-              **bound(2.0 * 1024 * C * D, PEAK_BF16, nbytes))
-    print(f"kernel phase K1 exact-query shape C={C} B=1024 D={D} "
-          f"BS={EXACT_LANES}: "
-          f"max_abs_err={k1['max_abs_err']:.3e} id_agree={agree:.6f} kernel "
-          f"{ms:.3f} ms ({ms / 1024 * 1e3:.2f} us a query) plain "
-          f"{plain_ms:.3f} ms bound {k1['bound_ms']:.4f} ms "
-          f"({k1['bound_by']})", flush=True)
+    k1 = k1_exact_shape("exact-query shape", st.coarse_table, st.norms,
+                        st.active, vecs[:1024])
 
     n0 = FS.lane_min_scan.launches
     q300 = vecs[:100]
@@ -1333,6 +1378,364 @@ def custom_metric_phase(vecs: np.ndarray, device: str = "cuda") -> dict:
     return out
 
 
+def sharded_live(six, n: int):
+    """The live mask of a sharded index by gid, over gids 0..n-1 (gid =
+    corpus row for this build), on the card: gid = slot * S + shard is
+    position [slot, shard] of the (C, S) view."""
+    import torch
+    act = torch.stack([st.active for st in six._states])      # (S, C)
+    return act.T.reshape(-1)[:n]
+
+
+def sharded_build(vecs: np.ndarray, devices) -> tuple:
+    """``ShardedIndex`` build of the whole corpus on ``devices``: inserts/s,
+    the waves, each shard's phase split and K1's launches in the build."""
+    import torch
+    from hnswindex_torch import HNSWParameters
+    from hnswindex_torch.ops import fused_scan as FS
+    from hnswindex_torch.parallel import ShardedIndex
+
+    n = vecs.shape[0]
+    six = ShardedIndex(D, "sq_euclid", HNSWParameters(collection_size=n),
+                       devices=devices)
+    FS.lane_min_scan.launches = 0
+    gids, s = timed_query(lambda: six.add(vecs))
+    launches = FS.lane_min_scan.launches
+    if six.count != n or not np.array_equal(gids, np.arange(n)):
+        fail("sharded build: the gids are not the corpus rows")
+    phases = [t.seconds() for t in six.timers]
+    split = "; ".join(
+        f"shard {i}: " + " ".join(f"{k}={ph.get(k, 0.0):.2f}s"
+                                  for k in ("scan", "prune", "reverse",
+                                            "upper"))
+        for i, ph in enumerate(phases))
+    print(f"sharded build: {n} rows on {six.n_shards} shards ({devices}), "
+          f"capacity {six.shard_capacity} a shard, in {s:.2f} s = "
+          f"{n / s:.1f} inserts/s; waves {six.wave_counts}; {split}; "
+          f"lane_min_scan launches {launches} (the scan prefix "
+          f"{six.shard_capacity} stays under BUILD_SCAN2_MIN)", flush=True)
+    torch.cuda.synchronize()
+    return six, dict(seconds=s, inserts_per_s=n / s,
+                     waves=dict(six.wave_counts),
+                     phases_s=phases, launches=launches,
+                     shard_capacity=six.shard_capacity)
+
+
+def sharded_queries(six, vecs: np.ndarray, gt: np.ndarray, xd) -> dict:
+    """Packed, unpacked (ef 64), exact (K1 counted and held against its
+    plain version on one shard's own inputs), a 50% id mask on the packed
+    path and ``range_query`` on the sharded index."""
+    import torch
+    from hnswindex_torch.ops import fused_scan as FS
+
+    n = vecs.shape[0]
+    out = {}
+    _, first_s = timed_query(lambda: six.knn_query(vecs[:NQ], 10))
+    (qi, qd), qs_s = timed_query(lambda: six.knn_query(vecs[:NQ], 10))
+    if six._pack is None or len(six._pack) != six.n_shards:
+        fail("sharded packed: the per-shard packs were not built")
+    check_answers("sharded packed", qi, qd, NQ, n)
+    rec = recall_at_10(qi[:1000], gt)
+    out["packed"] = dict(first_s=first_s, queries_per_s=NQ / qs_s,
+                         recall_at_10=rec)
+    print(f"sharded packed: {NQ} x k=10 first call (with the packs) "
+          f"{first_s:.2f} s; steady {NQ / qs_s:.1f} q/s; recall@10 "
+          f"{rec:.4f}", flush=True)
+    if rec < 0.90:
+        fail(f"sharded packed recall@10 {rec} < 0.90")
+
+    p = six.params
+    keep = (p.pack_queries, p.min_nn)
+    p.pack_queries, p.min_nn = "off", 64
+    try:
+        (qi, qd), s = timed_query(lambda: six.knn_query(vecs[:NQ], 10))
+    finally:
+        p.pack_queries, p.min_nn = keep
+    check_answers("sharded unpacked", qi, qd, NQ, n)
+    rec = recall_at_10(qi[:1000], gt)
+    out["unpacked"] = dict(queries_per_s=NQ / s, recall_at_10=rec)
+    print(f"sharded unpacked: {NQ} x k=10 ef=64 {NQ / s:.1f} q/s; "
+          f"recall@10 {rec:.4f}", flush=True)
+    if rec < 0.87:
+        fail(f"sharded unpacked recall@10 {rec} < 0.87")
+
+    FS.lane_min_scan.launches = 0
+    (qi, qd), s = timed_query(
+        lambda: six.knn_query(vecs[:NQ], 10, exact=True))
+    launches = FS.lane_min_scan.launches
+    check_answers("sharded exact", qi, qd, NQ, n)
+    rec = recall_at_10(qi[:1000], gt)
+    print(f"sharded exact: {NQ} x k=10 {NQ / s:.1f} q/s; lane_min_scan "
+          f"launches {launches}; recall@10 {rec:.4f}", flush=True)
+    if launches <= 0:
+        fail("the sharded exact query never launched the lane-min kernel")
+    if rec < 0.99:
+        fail(f"sharded exact recall@10 {rec} < 0.99")
+    st = six._states[0]
+    ns = six._exact_nscan()
+    k1 = k1_exact_shape(f"sharded exact shape (shard 0, prefix {ns})",
+                        st.coarse_table[:ns], st.norms[:ns], st.active[:ns],
+                        vecs[:1024])
+    out["exact"] = dict(queries_per_s=NQ / s, recall_at_10=rec,
+                        launches=launches, k1_shard_shape=k1)
+
+    q = vecs[:NQ_SMALL]
+    allowed = np.random.default_rng(SEED + 7).random(n) < 0.5
+    fmask = np.zeros(six.n_shards * six.shard_capacity, bool)
+    fmask[:n] = allowed
+    _, gtf = exact_topk(xd, q, 10, torch.as_tensor(allowed, device="cuda"))
+    (qi, qd), s = timed_query(lambda: six.knn_query(q, 10, filter_fnc=fmask))
+    check_filtered("sharded filtered packed", qi, qd, q, vecs, allowed)
+    rec = recall_at_10(qi, gtf)
+    out["filtered_packed"] = dict(queries_per_s=NQ_SMALL / s,
+                                  recall_at_10=rec)
+    print(f"sharded filtered packed (50% id mask): {NQ_SMALL} x k=10 "
+          f"{NQ_SMALL / s:.1f} q/s; recall@10 {rec:.4f}", flush=True)
+    if rec < 0.80:
+        fail(f"sharded filtered packed recall@10 {rec} < 0.80")
+    out["range"] = range_phase(six, vecs, xd)
+    return out
+
+
+def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
+    """``remove`` of N_SHARD_REMOVE seeded gids (removals/s, no live edge
+    into a removed slot, post/pre recall ratio >= 0.98), then ``update`` of
+    N_SHARD_UPDATE surviving rows."""
+    import torch
+
+    n = vecs.shape[0]
+    rng = np.random.default_rng(SEED + 11)
+    drop = rng.choice(n, N_SHARD_REMOVE, replace=False)
+    dropped = np.zeros(n, bool)
+    dropped[drop] = True
+    probe = rng.permutation(np.flatnonzero(~dropped))[:NQ_SMALL]
+
+    def live_rec():
+        ids, _ = six.knn_query(vecs[probe], 10)
+        _, gtl = exact_topk(xd, vecs[probe], 10, sharded_live(six, n))
+        return recall_at_10(ids, gtl)
+
+    pre = live_rec()
+    before = [t.seconds() for t in six.timers]
+    _, s = timed_query(lambda: six.remove(drop))
+    split = {k: sum(t.seconds().get(k, 0.0) - b.get(k, 0.0)
+                    for t, b in zip(six.timers, before))
+             for k in ("mark", "affected", "candidates", "repair")}
+    if six.count != n - N_SHARD_REMOVE:
+        fail(f"sharded removal: count {six.count}")
+    bad = sum(edges_into_removed(st) for st in six._states)
+    if bad:
+        fail(f"sharded removal: {bad} edges of live rows point to removed "
+             "rows")
+    qi, _ = six.knn_query(vecs[:NQ], 10)
+    if np.isin(qi, drop).any():
+        fail("sharded removal: a removed gid came back")
+    post = live_rec()
+    ratio = post / pre
+    print(f"sharded removal: {N_SHARD_REMOVE} gids in {s:.2f} s = "
+          f"{N_SHARD_REMOVE / s:.1f} removals/s (summed shard phases "
+          + " ".join(f"{k}={v:.2f}s" for k, v in split.items())
+          + f"); recall@10 of {NQ_SMALL} surviving rows {pre:.4f} -> "
+          f"{post:.4f} (ratio {ratio:.4f})", flush=True)
+    if ratio < 0.98:
+        fail(f"sharded removal: post/pre recall ratio {ratio} < 0.98")
+    out = dict(removals_per_s=N_SHARD_REMOVE / s, seconds=s, phases_s=split,
+               recall_pre=pre, recall_post=post, ratio=ratio)
+
+    live = np.flatnonzero(~dropped)
+    upd = np.sort(rng.choice(live, N_SHARD_UPDATE, replace=False))
+    moved = (vecs[upd] + 0.03 * rng.standard_normal(
+        (N_SHARD_UPDATE, D)).astype(np.float32))
+    ids_before = six.ids()
+    _, s = timed_query(lambda: six.update(upd, moved))
+    if not np.array_equal(six.ids(), ids_before) or \
+            six.count != n - N_SHARD_REMOVE:
+        fail("sharded update: the gids or the count changed")
+    if not np.array_equal(six._rows_global(upd), moved):
+        fail("sharded update: the stored vectors are not the new ones")
+    keep = six.params.min_nn
+    six.params.min_nn = 64
+    try:
+        found = six.knn_query(moved, 1)[0][:, 0]
+    finally:
+        six.params.min_nn = keep
+    rec1 = float((found == upd).mean())
+    print(f"sharded update: {N_SHARD_UPDATE} rows in {s:.2f} s = "
+          f"{N_SHARD_UPDATE / s:.1f} rows/s; recall@1 by the new vectors "
+          f"at ef 64 {rec1:.4f}", flush=True)
+    if rec1 < 0.85:
+        fail(f"sharded update: recall@1 {rec1} < 0.85 at ef 64")
+    out["update"] = dict(rows_per_s=N_SHARD_UPDATE / s, recall_at_1=rec1)
+    return out
+
+
+def sharded_stats_snapshot(six, vecs: np.ndarray) -> dict:
+    """``get_info`` and component counts (S components at layer 0), then a
+    ``.npz`` round trip whose answers are identical."""
+    import os
+    import tempfile
+    import torch
+    from hnswindex_torch.parallel import ShardedIndex
+
+    info, info_s = timed_query(six.get_info)
+    comps, comp_s = timed_query(six.get_connected_component_counts)
+    if info.layers[0].nodes_count != six.count or \
+            comps[0] != six.n_shards:
+        fail(f"sharded stats: layer 0 holds {info.layers[0].nodes_count} "
+             f"nodes and {comps[0]} components")
+    print(f"sharded stats: get_info {info_s:.3f} s ({len(info.layers)} "
+          f"layers, layer 0 avg out {info.layers[0].avg_out_edges:.3f}); "
+          f"components {comps} in {comp_s:.3f} s", flush=True)
+    q = vecs[:NQ_SMALL] + 0.01
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sharded.npz")
+        _, write_s = timed_query(lambda: six.serialize(path))
+        nbytes = os.path.getsize(path)
+        loaded, read_s = timed_query(
+            lambda: ShardedIndex.deserialize(path, devices=six.devices))
+    a, b = six.knn_query(q, 10), loaded.knn_query(q, 10)
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        fail("sharded snapshot: the loaded index answers differently")
+    print(f"sharded snapshot: write {write_s:.2f} s, read {read_s:.2f} s, "
+          f"{nbytes} bytes; {NQ_SMALL} queries answered identically",
+          flush=True)
+    del loaded
+    torch.cuda.empty_cache()
+    return dict(get_info_s=info_s, components_s=comp_s, components=comps,
+                write_s=write_s, read_s=read_s, bytes=nbytes)
+
+
+def k2_selection(what: str, ix, s: int, q, bids, k: int = 10) -> dict:
+    """Shard ``s``'s top-k through K2 (``block._score_blocks_panel``)
+    against the plain ``block._score_blocks`` on the same probes: the
+    values within K2's bars, and where the ids differ, the two ids at that
+    place are a near-tie (float64 distances within the same bars); both
+    timed."""
+    import torch
+    from hnswindex_torch.block import _score_blocks, _score_blocks_panel
+    from hnswindex_torch.ops import distance as dst
+
+    blk, ids, fill = ix._blk_vecs[s], ix._blk_ids[s], ix._blk_fill[s]
+    norms = dst.norm_data(ix.metric, blk.reshape(-1, blk.shape[-1])) \
+        .reshape(blk.shape[:2])
+    panel = lambda: _score_blocks_panel(ix.metric, blk, ids, fill, q,  # noqa
+                                        bids, k)
+    plain = lambda: _score_blocks(ix.metric, blk, ids, norms, q,  # noqa
+                                  bids, k)
+    pv, pid = panel()
+    rv, rid = plain()
+    pv, pid = pv[:, :k], pid[:, :k]
+    fin = torch.isfinite(rv)
+    err = (pv[fin] - rv[fin]).abs()
+    if not torch.equal(torch.isfinite(pv), fin) or \
+            bool((err > 1e-4 + 1e-4 * rv[fin].abs()).any()):
+        fail(f"K2 top-{k} values at the {what}: max abs err "
+             f"{err.max().item()}")
+    pid, rid = pid.cpu().numpy(), rid.cpu().numpy()
+    rows, cols = np.nonzero(pid != rid)
+    gap = 0.0
+    if rows.size:
+        a, b = pid[rows, cols], rid[rows, cols]
+        if (a < 0).any() or (b < 0).any():
+            fail(f"K2 top-{k} at the {what}: a padded id differs")
+        x = ix._h_vecs.reshape(-1, ix.dim)
+        qq = q.cpu().numpy().astype(np.float64)[rows]
+        da = ((qq - x[ix._id_to_pos[a]]) ** 2).sum(1)
+        db = ((qq - x[ix._id_to_pos[b]]) ** 2).sum(1)
+        gap = float(np.abs(da - db).max())
+        if (np.abs(da - db) > 1e-4 + 1e-4 * db).any():
+            fail(f"K2 top-{k} at the {what}: ids differ beyond a near-tie "
+                 f"(float64 gap {gap})")
+    agree = 1.0 - rows.size / pid.size
+    res = dict(select_max_abs_err=err.max().item(), select_id_agree=agree,
+               select_tie_gap=gap, select_ms=time_ms(panel, 10),
+               select_plain_ms=time_ms(plain, 3))
+    print(f"kernel phase K2 top-{k} at the {what}: max_abs_err="
+          f"{res['select_max_abs_err']:.3e} id_agree={agree:.6f} ({rows.size}"
+          f" ids differ, all near-ties, float64 gap <= {gap:.3e}); K2 + "
+          f"top-k {res['select_ms']:.3f} ms, plain _score_blocks "
+          f"{res['select_plain_ms']:.3f} ms", flush=True)
+    return res
+
+
+def sharded_block(vecs: np.ndarray, gt: np.ndarray, devices,
+                  single_recall: float) -> dict:
+    """``ShardedBlockIndex`` of the corpus at 128-row blocks: q/s,
+    recall@10 >= 0.90 and within 0.005 of the single-card BlockIndex's,
+    K2 launched; then add and remove N_CHURN rows."""
+    import torch
+    from hnswindex_torch import ShardedBlockIndex
+    from hnswindex_torch.ops import block_scores as TBS
+
+    n = vecs.shape[0]
+    sbx = ShardedBlockIndex(D, "sq_euclid", block_size=K2_BS,
+                            devices=devices)
+    _, build_s = timed_query(lambda: sbx.build(vecs))
+    sbx.knn_query(vecs[:K2_B], 10, n_probe=K2_P)             # warm up
+    TBS.block_scores.launches = 0
+    (qi, qd), s = timed_query(lambda: sbx.knn_query(vecs[:NQ], 10,
+                                                    n_probe=K2_P))
+    launches = TBS.block_scores.launches
+    check_answers("sharded block", qi, qd, NQ, n)
+    rec = recall_at_10(qi[:1000], gt)
+    print(f"sharded block: {n} rows in {sbx.n_blocks} blocks on "
+          f"{sbx.n_shards} shards, build {build_s:.2f} s; {NQ} x k=10 "
+          f"n_probe={K2_P} {NQ / s:.1f} q/s; recall@10 {rec:.4f} (BlockIndex "
+          f"{single_recall:.4f}); block_scores launches {launches}",
+          flush=True)
+    if rec < 0.90 or abs(rec - single_recall) > 0.005:
+        fail(f"sharded block recall@10 {rec} (BlockIndex {single_recall})")
+    if launches <= 0:
+        fail("the sharded block path never launched the block-scores kernel")
+    # K2 on shard 0's own traffic: the first K2_B queries routed and
+    # compacted as query_device does (after the launch count was read)
+    qt = torch.as_tensor(vecs[:K2_B], device="cuda")
+    local = sbx._shard_probes(sbx._route(qt, K2_P), 0)
+    bv = sbx._blk_vecs[0]
+    name = (f"sharded block shape (shard 0) sq_euclid/f32 NB={bv.shape[0]} "
+            f"BS={K2_BS} D={D} B={K2_B} P={local.shape[1]}")
+    k2 = k2_compare(name, "sq_euclid", bv, local, qt, timed=True)
+    k2.update(k2_selection(name, sbx, 0, qt, local))
+    del qt, local, bv
+    rng = np.random.default_rng(SEED + 12)
+    fresh = (vecs[rng.choice(n, N_CHURN, replace=False)]
+             + 0.01 * rng.standard_normal((N_CHURN, D)).astype(np.float32))
+    new_ids, add_s = timed_query(lambda: sbx.add(fresh))
+    drop = rng.choice(np.arange(NQ, n), N_CHURN, replace=False)
+    _, remove_s = timed_query(lambda: sbx.remove(drop))
+    if sbx.count != n or new_ids.min() < n:
+        fail("sharded block: add/remove lost count or reused an id")
+    found = sbx.knn_query(fresh[:1000], 1, n_probe=K2_P)[0][:, 0]
+    self_found = float((found == new_ids[:1000]).mean())
+    back = sbx.knn_query(vecs[drop[:1000]], 10, n_probe=K2_P)[0]
+    print(f"sharded block churn: add {N_CHURN} rows {add_s:.2f} s, remove "
+          f"{N_CHURN} ids {remove_s:.2f} s; added rows find themselves "
+          f"{self_found:.4f}", flush=True)
+    if np.isin(back, drop).any() or self_found < 0.90:
+        fail("sharded block: a removed id came back or added rows are lost")
+    del sbx
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, queries_per_s=NQ / s, recall_at_10=rec,
+                launches=launches, add_s=add_s, remove_s=remove_s,
+                self_found=self_found, k2_shard_shape=k2)
+
+
+def sharded_phases(vecs: np.ndarray, gt: np.ndarray,
+                   block_recall: float) -> dict:
+    """The sharded front ends on the corpus, two shards on the one card."""
+    import torch
+    devices = ["cuda:0", "cuda:0"]
+    xd = torch.as_tensor(vecs, device="cuda")
+    six, build = sharded_build(vecs, devices)
+    out = dict(build=build, queries=sharded_queries(six, vecs, gt, xd))
+    out["churn"] = sharded_churn(six, vecs, xd)
+    out["stats_snapshot"] = sharded_stats_snapshot(six, vecs)
+    del six, xd
+    torch.cuda.empty_cache()
+    out["block"] = sharded_block(vecs, gt, devices, block_recall)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1445,6 +1848,8 @@ def main() -> int:
     del beam_index
     torch.cuda.empty_cache()
     custom = custom_metric_phase(vecs)
+    torch.cuda.empty_cache()
+    sharded = sharded_phases(vecs, gt, blockp["recall_at_10"])
 
     print(json.dumps({"summary": {
         "n": n, "build_s": build_s, "build_inserts_per_s": n / build_s,
@@ -1453,7 +1858,7 @@ def main() -> int:
         "filters": filters, "churn": churn, "hnsw_router": router,
         "stats": {"after_build": stats_built, "after_churn": stats_churned},
         "snapshot": snap, "reference_snapshot": refsnap,
-        "custom_metric": custom,
+        "custom_metric": custom, "sharded": sharded,
         "beam_build": beam, "block_path": blockp, "fallback": fallb,
         "block_scores_phases": k2}}), flush=True)
     print(card, flush=True)
@@ -1470,6 +1875,8 @@ def main() -> int:
          "launches_callable_exact": filters["callable exact"]["launches"],
          "launches_readd": churn["readd"]["launches"],
          "launches_update": churn["update"]["launches"],
+         "launches_sharded_build": sharded["build"]["launches"],
+         "launches_sharded_exact": sharded["queries"]["exact"]["launches"],
          **{k: k_full[k] for k in keys}},
         {"name": "block_scores", "route": "cuda",
          "source": "hnswindex_torch/csrc/block_scores.cu",
@@ -1477,6 +1884,7 @@ def main() -> int:
          "launches": blockp["launches"],
          "launches_fallback": fallb["launches"],
          "launches_hnsw_router": router["launches"],
+         "launches_sharded_block": sharded["block"]["launches"],
          **{k: k2m[k] for k in keys}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

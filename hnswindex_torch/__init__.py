@@ -16,11 +16,14 @@ and reuse the slots, and a distance registered with ``register_metric``
 formats.  The block-serving path: :class:`BlockIndex` and the facade's
 at-scale fallback route a query to its nearest blocks (exactly, or through
 a graph over the centroids) and score them with the hand-written CUDA
-block-scoring kernel (``csrc/block_scores.cu``).  The sharded front ends
-are not ported yet.
+block-scoring kernel (``csrc/block_scores.cu``).  The sharded front ends,
+:class:`~hnswindex_torch.parallel.sharded.ShardedIndex` and
+:class:`ShardedBlockIndex` (``parallel/``), split a corpus by row over
+several devices (a device may repeat) and merge the shards' answers.
 
 Public API: :class:`Index` (drop-in for the reference bindings),
-:class:`HNSWIndex`, :class:`BlockIndex`, :class:`HNSWParameters`,
+:class:`HNSWIndex`, :class:`BlockIndex`, :class:`ShardedBlockIndex`,
+:class:`HNSWParameters`,
 :class:`HNSWInfo` / :class:`LayerInfo`, :class:`KNNResult` and
 :func:`register_metric`.
 """
@@ -31,9 +34,11 @@ from .core.stats import HNSWInfo, LayerInfo
 from .index import HNSWIndex
 from .ops.distance import register_metric
 from .params import HNSWParameters
+from .parallel.block_sharded import ShardedBlockIndex
 from .results import KNNResult
 
 __version__ = "0.1.0"
 
 __all__ = ["Index", "HNSWIndex", "HNSWParameters", "HNSWInfo", "LayerInfo",
-           "KNNResult", "BlockIndex", "register_metric", "__version__"]
+           "KNNResult", "BlockIndex", "ShardedBlockIndex", "register_metric",
+           "__version__"]

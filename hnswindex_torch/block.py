@@ -453,7 +453,23 @@ class BlockIndex:
         """Set host mirrors + device tables from a block layout.  Shared
         by build/rebuild/deserialize.  Each block's live members must be a
         prefix of its row (scoring masks by fill count)."""
-        NB, BS = blk_ids.shape
+        self._install_host(blk_ids, blk_vecs, next_id)
+        self._blk_vecs = self._to_dev(self._h_vecs)
+        self._blk_ids = self._to_dev(self._h_ids)
+        self._blk_fill = self._to_dev(self._h_fill)
+        self._cents = self._to_dev(self._h_cents)
+        self._cent_norms = dst.norm_data(self.metric, self._cents)
+        self._cent_valid = self._blk_fill > 0
+        self._router_dirty = False
+        if self.router == "hnsw":
+            self._build_router()
+        self._built = True
+
+    def _install_host(self, blk_ids: np.ndarray, blk_vecs: np.ndarray,
+                      next_id: int) -> None:
+        """The host mirrors of a block layout: tables, fills, centroids,
+        radii, the id -> position map and the counts."""
+        NB = blk_ids.shape[0]
         self._h_ids = np.ascontiguousarray(blk_ids, np.int32)
         self._h_vecs = np.ascontiguousarray(blk_vecs, np.float32)
         fill_mask = self._h_ids >= 0
@@ -471,21 +487,10 @@ class BlockIndex:
         sq = ((self._h_vecs - self._h_cents[:, None, :]) ** 2).sum(axis=2)
         self._h_r2 = (np.where(fill_mask, sq, 0.0).sum(axis=1)
                       / np.maximum(self._h_fill, 1)).astype(np.float32)
-
-        self._blk_vecs = self._to_dev(self._h_vecs)
-        self._blk_ids = self._to_dev(self._h_ids)
-        self._blk_fill = self._to_dev(self._h_fill)
-        self._cents = self._to_dev(self._h_cents)
-        self._cent_norms = dst.norm_data(self.metric, self._cents)
-        self._cent_valid = self._blk_fill > 0
         self.n_blocks = NB
         self.count = int(fill_mask.sum())
         self._built_count = max(1, self.count)
         self._open_dyn: list = []       # blocks opened by dynamic overflow
-        self._router_dirty = False
-        if self.router == "hnsw":
-            self._build_router()
-        self._built = True
 
     def _build_router(self) -> None:
         """The centroid graph of ``router="hnsw"``: centroids are added in
@@ -520,18 +525,9 @@ class BlockIndex:
     def _grow_blocks(self, n_new: int) -> None:
         """Extend the block tables by >= n_new empty blocks (with slack so
         the tables are reallocated rarely)."""
-        NB, BS = self._h_ids.shape
-        extra = max(n_new, 16, NB // 4)
-        self._h_ids = np.concatenate(
-            [self._h_ids, np.full((extra, BS), -1, np.int32)])
-        self._h_vecs = np.concatenate(
-            [self._h_vecs, np.zeros((extra, BS, self.dim), np.float32)])
-        self._h_fill = np.concatenate(
-            [self._h_fill, np.zeros(extra, np.int32)])
-        self._h_cents = np.concatenate(
-            [self._h_cents, np.zeros((extra, self.dim), np.float32)])
-        self._h_r2 = np.concatenate(
-            [self._h_r2, np.zeros(extra, np.float32)])
+        BS = self.block_size
+        extra = max(n_new, 16, self.n_blocks // 4)
+        self._grow_host(extra)
         self._blk_ids = torch.cat(
             [self._blk_ids, self._blk_ids.new_full((extra, BS), -1)])
         self._blk_vecs = torch.cat(
@@ -542,8 +538,22 @@ class BlockIndex:
             [self._cents, self._cents.new_zeros((extra, self.dim))])
         self._cent_norms = dst.norm_data(self.metric, self._cents)
         self._cent_valid = self._blk_fill > 0
-        self.n_blocks = self._h_ids.shape[0]
         self._router_dirty = True
+
+    def _grow_host(self, extra: int) -> None:
+        """Append ``extra`` empty blocks to the host mirrors."""
+        BS = self.block_size
+        self._h_ids = np.concatenate(
+            [self._h_ids, np.full((extra, BS), -1, np.int32)])
+        self._h_vecs = np.concatenate(
+            [self._h_vecs, np.zeros((extra, BS, self.dim), np.float32)])
+        self._h_fill = np.concatenate(
+            [self._h_fill, np.zeros(extra, np.int32)])
+        self._h_cents = np.concatenate(
+            [self._h_cents, np.zeros((extra, self.dim), np.float32)])
+        self._h_r2 = np.concatenate(
+            [self._h_r2, np.zeros(extra, np.float32)])
+        self.n_blocks = self._h_ids.shape[0]
 
     def _touch_device(self, blocks) -> None:
         """Push the host rows of the touched blocks to the device tables,
@@ -606,7 +616,8 @@ class BlockIndex:
 
     def _require_built(self) -> None:
         if not self._built:
-            raise RuntimeError("BlockIndex.build() must be called first")
+            raise RuntimeError(f"{type(self).__name__}.build() must be "
+                               "called first")
 
     def _as_rows(self, vectors) -> np.ndarray:
         a = np.ascontiguousarray(np.asarray(vectors, np.float32))

@@ -75,20 +75,38 @@ def _median(sorted_vals: torch.Tensor) -> torch.Tensor:
                      rounding_mode="floor")
 
 
-def _layer_figures(state: GraphState, layer: int):
-    """[n, out max, out min, in max, in min, out sum, in sum, out median,
-    in median] of one layer as host ints, or None for an empty layer."""
+def layer_degrees(state: GraphState, layer: int):
+    """(out-degrees, in-degrees) int64 of the active rows on ``layer``."""
     on = _on_layer(state, layer)
     _, deg_l = nbr_slice(state, layer)
-    od = deg_l[on].long()
+    return deg_l[on].long(), in_degrees(state, layer)[on]
+
+
+def degree_figures(od: torch.Tensor, idg: torch.Tensor):
+    """[n, out max, out min, in max, in min, out sum, in sum, out median,
+    in median] of one layer's degrees as host ints, or None for an empty
+    layer."""
     if od.numel() == 0:
         return None
-    idg = in_degrees(state, layer)[on]
     fig = torch.stack([
         torch.tensor(od.numel(), device=od.device),
         od.max(), od.min(), idg.max(), idg.min(), od.sum(), idg.sum(),
         _median(torch.sort(od).values), _median(torch.sort(idg).values)])
     return fig.tolist()
+
+
+def layer_info(layer: int, fig, report_in_edges: bool) -> LayerInfo:
+    """The ``LayerInfo`` of one layer's ``degree_figures``; without
+    ``report_in_edges`` the in-edge figures are zero."""
+    n, omax, omin, imax, imin, osum, isum, omed, imed = fig
+    if not report_in_edges:
+        imax = imin = isum = imed = 0
+    return LayerInfo(
+        layer_id=layer, nodes_count=n,
+        max_out_edges=omax, min_out_edges=omin,
+        max_in_edges=imax, min_in_edges=imin,
+        avg_out_edges=osum / n, avg_in_edges=isum / n,
+        out_edges_median=omed, in_edges_median=imed)
 
 
 def graph_info(cfg: GraphConfig, state: GraphState,
@@ -102,18 +120,9 @@ def graph_info(cfg: GraphConfig, state: GraphState,
         return HNSWInfo(layers=[])
     layers = []
     for layer in range(int(state.level[ep]) + 1):
-        fig = _layer_figures(state, layer)
-        if fig is None:
-            continue
-        n, omax, omin, imax, imin, osum, isum, omed, imed = fig
-        if not report_in_edges:
-            imax = imin = isum = imed = 0
-        layers.append(LayerInfo(
-            layer_id=layer, nodes_count=n,
-            max_out_edges=omax, min_out_edges=omin,
-            max_in_edges=imax, min_in_edges=imin,
-            avg_out_edges=osum / n, avg_in_edges=isum / n,
-            out_edges_median=omed, in_edges_median=imed))
+        fig = degree_figures(*layer_degrees(state, layer))
+        if fig is not None:
+            layers.append(layer_info(layer, fig, report_in_edges))
     return HNSWInfo(layers=layers)
 
 

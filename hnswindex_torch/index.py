@@ -98,7 +98,7 @@ QUERY_BATCH = 1024
 EXACT_LANES = 4096
 #: range-search result pool ladder (the reference's)
 RANGE_POOLS = (64, 512, 4096)
-#: k-NN seeds injected into the range pool (_range_once)
+#: k-NN seeds injected into the range pool (range_pass)
 RANGE_SEED_EF = 16
 #: floor of the reference's scan-prefix bucket ladder (the scan gate reads
 #: it; the port's scan itself covers the exact high-water prefix)
@@ -185,6 +185,122 @@ def _check_full_f32(device: torch.device) -> None:
             "hnswindex_torch needs full-precision float32 matmuls on CUDA: "
             "set torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.set_float32_matmul_precision('highest')")
+
+
+def insert_wave(cfg: G.GraphConfig, st: G.GraphState, wid, wvec, wlvl,
+                up: np.ndarray, max_lvl: int, *, exact: bool, scan_hwm: int,
+                full: bool, panel: Optional[torch.Tensor], timer) -> None:
+    """One wave into ``st``: store, connect upper members (wave positions
+    ``up``, top level ``max_lvl``), connect layer 0.  The exact path
+    connects the upper members over the upper-node ``panel`` and scans the
+    ``scan_hwm`` prefix for layer 0, through the two-stage scan once the
+    bucketed prefix reaches the gate (``full``: a full-width wave); the
+    beam path descends and searches the graph."""
+    upt = torch.as_tensor(up).to(st.device) if up.size else None
+    if not exact:
+        with timer.phase("beam_wave"):
+            CS.scatter_wave(cfg, st, wid, wvec, wlvl)
+            ue = None
+            if upt is not None:
+                with timer.phase("upper"):
+                    ue = CS.upper_connect(cfg, st, wid[upt], wlvl[upt],
+                                          max_lvl, timer)
+            CS.base_connect(cfg, st, wid, wlvl, upt, ue, timer)
+        return
+    CS.scatter_wave(cfg, st, wid, wvec, wlvl)
+    if upt is not None:
+        with timer.phase("upper"):
+            CS.upper_connect_exact(cfg, st, wid[upt], wlvl[upt], panel,
+                                   max_lvl)
+    nscan = min(st.capacity, max(SCAN_FLOOR, _next_pow2(scan_hwm)))
+    CS.base_connect_exact(cfg, st, wid, wlvl, nscan=nscan, scan2=full,
+                          prefix=scan_hwm, timer=timer)
+
+
+def callable_knn(q: np.ndarray, k: int, pred, *, exact: bool, custom: bool,
+                 min_nn: int, count: int, id_space: int, search, exact_scan,
+                 rows, refine) -> Tuple[np.ndarray, np.ndarray]:
+    """Callable filters (HNSWIndex.cs:111-117), for the single-device and
+    the sharded facade: search unfiltered with a widening beam and evaluate
+    the predicate on returned candidates only (the reference evaluates it
+    on visited nodes, GraphNavigator.cs:235-239; never a sweep of the
+    corpus).  A query short of k passing results widens ``ef`` x4 up to
+    ``min(4096, next_pow2(count))``; once the beams are saturated there,
+    the queries still short get one exact top-``ef`` scan before they are
+    finalized (not for a registered metric, ``custom``, which has no exact
+    scan).  ``exact=True`` runs exact rounds from the start.  Each round's
+    finished queries are refined in one batch.  Verdicts live in a table
+    over the ``id_space`` ids, so each id is judged once a call.
+
+    ``search(q, ef)`` and ``exact_scan(q, k)`` return (n, w) candidate
+    ids, ``rows(ids)`` their stored vectors and ``refine(q, ids, k)`` the
+    final (ids, dists)."""
+    from .utils.predicates import BatchedPredicate
+
+    n = q.shape[0]
+    out_ids = np.full((n, k), -1, np.int32)
+    out_d = np.full((n, k), np.nan, np.float32)
+    judged = np.zeros(id_space, dtype=bool)
+    passes = np.zeros(id_space, dtype=bool)
+    bpred = pred if isinstance(pred, BatchedPredicate) \
+        else BatchedPredicate(pred)
+
+    pending = np.arange(n)
+    ef = max(min_nn, 2 * k, 16)
+    cap = min(4096, _next_pow2(max(count, 1)))
+    mode_exact = exact and not custom
+    can_escalate = not mode_exact and not custom
+    while pending.size:
+        sub = q[pending]
+        if mode_exact:
+            ids = exact_scan(sub, min(ef, max(count, 1)))
+        else:
+            ids = search(sub, ef)
+        flat = np.unique(ids[ids >= 0])
+        fresh = flat[~judged[flat]]
+        if fresh.size:
+            passes[fresh] = bpred(rows(fresh))
+            judged[fresh] = True
+        saturated = ef >= cap
+        done, got, still = [], [], []
+        for r, qi in enumerate(pending):
+            row = ids[r]
+            keep = row[(row >= 0) & passes[np.clip(row, 0, id_space - 1)]]
+            starved = (row >= 0).sum() < ids.shape[1]
+            if keep.size >= k or starved or \
+                    (saturated and not can_escalate):
+                done.append(qi)
+                got.append(keep[:k])
+            else:
+                still.append(qi)
+        if done:
+            sel = np.full((len(done), k), -1, np.int64)
+            for r, keep in enumerate(got):
+                sel[r, :keep.size] = keep
+            qs = np.asarray(done, np.int64)
+            out_ids[qs], out_d[qs] = refine(q[qs], sel, k)
+        pending = np.asarray(still, dtype=np.int64)
+        if saturated and can_escalate and pending.size:
+            mode_exact, can_escalate = True, False
+        else:
+            ef = min(cap, ef * 4)
+    return out_ids, out_d
+
+
+def range_pass(cfg: G.GraphConfig, metric: str, st: G.GraphState,
+               qt: torch.Tensor, radius: float, layer: int, pool: int,
+               fmask: Optional[torch.Tensor] = None):
+    """One graph range pass over ``st``: seeds from a k-NN beam of width
+    RANGE_SEED_EF (in-range pockets not linked to the greedy entry through
+    in-range nodes), then ``range_search`` at ``pool``, keeping the ids in
+    ``fmask``.  Returns ``range_search``'s (dists, ids, saturated)."""
+    qn = dst.norm_data(metric, qt)
+    _, seeds = SR.knn_search(cfg, st, qt, layer, RANGE_SEED_EF,
+                             cfg.search_iter_factor * RANGE_SEED_EF + 16)
+    ep_ok = (st.ep >= 0).expand(seeds.shape)
+    return SR.range_search(cfg, st, qt, qn, seeds, ep_ok, layer, radius,
+                           pool, pool * 4 + 16, filtered=fmask is not None,
+                           filter_mask=fmask)
 
 
 class HNSWIndex:
@@ -337,33 +453,15 @@ class HNSWIndex:
 
     def _insert_wave(self, wid, wvec, wlvl, up: np.ndarray, max_lvl: int,
                      full: bool) -> None:
-        """One wave: store, connect upper members, connect layer 0; on the
-        exact path while the corpus is at most ``exact_build_threshold``
-        rows, on the beam path past it and always for a registered metric
-        (reference ``_insert_wave_dev``)."""
-        cfg, st = self._cfg, self._state
-        upt = torch.as_tensor(up).to(self.device) if up.size else None
-        if self._count_host > self.params.exact_build_threshold or \
-                dst.is_custom(self.metric):
-            self.wave_counts["beam"] += 1
-            with self.timer.phase("beam_wave"):
-                CS.scatter_wave(cfg, st, wid, wvec, wlvl)
-                ue = None
-                if upt is not None:
-                    with self.timer.phase("upper"):
-                        ue = CS.upper_connect(cfg, st, wid[upt], wlvl[upt],
-                                              max_lvl, self.timer)
-                CS.base_connect(cfg, st, wid, wlvl, upt, ue, self.timer)
-            return
-        self.wave_counts["exact"] += 1
-        CS.scatter_wave(cfg, st, wid, wvec, wlvl)
-        if upt is not None:
-            with self.timer.phase("upper"):
-                CS.upper_connect_exact(cfg, st, wid[upt], wlvl[upt],
-                                       self._upper_ids, max_lvl)
-        nscan = min(st.capacity, max(SCAN_FLOOR, _next_pow2(self._scan_hwm)))
-        CS.base_connect_exact(cfg, st, wid, wlvl, nscan=nscan, scan2=full,
-                              prefix=self._scan_hwm, timer=self.timer)
+        """One wave, on the exact path while the corpus is at most
+        ``exact_build_threshold`` rows, on the beam path past it and always
+        for a registered metric (reference ``_insert_wave_dev``)."""
+        exact = self._count_host <= self.params.exact_build_threshold and \
+            not dst.is_custom(self.metric)
+        self.wave_counts["exact" if exact else "beam"] += 1
+        insert_wave(self._cfg, self._state, wid, wvec, wlvl, up, max_lvl,
+                    exact=exact, scan_hwm=self._scan_hwm, full=full,
+                    panel=self._upper_ids, timer=self.timer)
 
     # -- upper-node panel: the reference's layout (positions in insertion
     # order, holes where ids were removed, compaction once holes pass half
@@ -719,70 +817,15 @@ class HNSWIndex:
 
     def _knn_query_callable(self, q: np.ndarray, k: int, pred, layer: int,
                             exact: bool) -> Tuple[np.ndarray, np.ndarray]:
-        """Callable filters (HNSWIndex.cs:111-117): search unfiltered with a
-        widening beam and evaluate the predicate on returned candidates only
-        (the reference evaluates it on visited nodes, GraphNavigator.cs:
-        235-239; never a sweep of the corpus).  A query short of k passing
-        results widens ``ef`` x4 up to ``min(4096, next_pow2(count))``; once
-        the beams are saturated there, the queries still short get one exact
-        top-``ef`` scan before they are finalized (not for a registered
-        metric, which has no exact scan).  Each round's finished
-        queries are refined in one batch.  Verdicts live in a table over the
-        slots, so each id is judged once a call."""
-        from .utils.predicates import BatchedPredicate
-
-        n = q.shape[0]
-        C = self._state.capacity
-        out_ids = np.full((n, k), -1, np.int32)
-        out_d = np.full((n, k), np.nan, np.float32)
-        judged = np.zeros(C, dtype=bool)
-        passes = np.zeros(C, dtype=bool)
-        bpred = pred if isinstance(pred, BatchedPredicate) \
-            else BatchedPredicate(pred)
-
-        pending = np.arange(n)
-        ef = max(self.params.min_nn, 2 * k, 16)
-        cap = min(4096, _next_pow2(max(self._count_host, 1)))
-        # a registered metric has no exact scan: graph rounds only
-        custom = dst.is_custom(self.metric)
-        mode_exact = exact and not custom
-        can_escalate = not mode_exact and not custom
-        while pending.size:
-            sub = q[pending]
-            if mode_exact:
-                ids = self._exact_ids(sub, min(ef, max(self._count_host, 1)),
-                                      layer, None, scan2_max=256)
-            else:
-                ids = self._search_ids(sub, ef, layer)
-            flat = np.unique(ids[ids >= 0])
-            fresh = flat[~judged[flat]]
-            if fresh.size:
-                passes[fresh] = bpred(self._rows(fresh))
-                judged[fresh] = True
-            saturated = ef >= cap
-            done, got, still = [], [], []
-            for r, qi in enumerate(pending):
-                row = ids[r]
-                keep = row[(row >= 0) & passes[np.clip(row, 0, C - 1)]]
-                starved = (row >= 0).sum() < ids.shape[1]
-                if keep.size >= k or starved or \
-                        (saturated and not can_escalate):
-                    done.append(qi)
-                    got.append(keep[:k])
-                else:
-                    still.append(qi)
-            if done:
-                rows = np.full((len(done), k), -1, np.int32)
-                for r, keep in enumerate(got):
-                    rows[r, :keep.size] = keep
-                qs = np.asarray(done, np.int64)
-                out_ids[qs], out_d[qs] = self._refine(q[qs], rows, k)
-            pending = np.asarray(still, dtype=np.int64)
-            if saturated and can_escalate and pending.size:
-                mode_exact, can_escalate = True, False
-            else:
-                ef = min(cap, ef * 4)
-        return out_ids, out_d
+        """Callable filters (``callable_knn``) over the slots."""
+        return callable_knn(
+            q, k, pred, exact=exact, custom=dst.is_custom(self.metric),
+            min_nn=self.params.min_nn, count=self._count_host,
+            id_space=self._state.capacity,
+            search=lambda sub, ef: self._search_ids(sub, ef, layer),
+            exact_scan=lambda sub, kk: self._exact_ids(
+                sub, kk, layer, None, scan2_max=256),
+            rows=self._rows, refine=self._refine)
 
     def _exact_ids(self, q: np.ndarray, k: int, layer: int,
                    fmask: Optional[torch.Tensor],
@@ -879,7 +922,8 @@ class HNSWIndex:
                           if p >= need + RANGE_SEED_EF + 1),
                          RANGE_POOLS[-1])
             for pool in [p for p in RANGE_POOLS if p >= start]:
-                _, ids, sat = self._range_once(qt, r32, layer, pool, fmask)
+                _, ids, sat = range_pass(self._cfg, self.metric, st, qt, r32,
+                                         layer, pool, fmask)
                 sat_np = sat.cpu().numpy()
                 if not sat_np.any():
                     break
@@ -955,22 +999,6 @@ class HNSWIndex:
         order = np.argsort(d[hit], kind="stable")
         return (hit[order].astype(np.int32),
                 d[hit][order].astype(np.float32))
-
-    def _range_once(self, qt: torch.Tensor, radius: float, layer: int,
-                    pool: int, fmask: Optional[torch.Tensor] = None):
-        """One graph range pass: seeds from a k-NN beam of width
-        RANGE_SEED_EF (in-range pockets not linked to the greedy entry
-        through in-range nodes), then ``range_search`` at ``pool``, keeping
-        the ids in ``fmask``."""
-        st = self._state
-        qn = dst.norm_data(self.metric, qt)
-        _, seeds = SR.knn_search(
-            self._cfg, st, qt, layer, RANGE_SEED_EF,
-            self._cfg.search_iter_factor * RANGE_SEED_EF + 16)
-        ep_ok = (st.ep >= 0).expand(seeds.shape)
-        return SR.range_search(self._cfg, st, qt, qn, seeds, ep_ok, layer,
-                               radius, pool, pool * 4 + 16,
-                               filtered=fmask is not None, filter_mask=fmask)
 
     def multi_layer_knn_query(self, query, k: int,
                               max_layer: int = 2 ** 30, min_layer: int = 0

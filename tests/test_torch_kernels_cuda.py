@@ -20,7 +20,14 @@ ids agree, and as the exact query calls it at k=10 (the kernel) and
 k=300 (the panel branch), there at atol 1e-4 (small distances of large
 norms); a 2,000-row build on the card through the kernel keeps the row
 invariants and self-recall > 0.85; a 3,000-row beam-path build on the card
-matches the same build on the CPU at per-layer edge overlap >= 0.98."""
+matches the same build on the CPU at per-layer edge overlap >= 0.98.
+The sharded front ends on two shards of the one card: the exact query
+launches the lane-min kernel on each shard, its scan gives the plain
+version's ids on >= 0.999 of entries and its answers recall@10 >= 0.99; a
+sharded build through the kernel (gate lowered to 0) overlaps the CPU
+build's layer-0 edges at >= 0.99 on each shard; ShardedBlockIndex
+launches K2 on each shard, each shard's panel selects the plain
+_score_blocks top-10 up to float64 near-ties, and full probing is exact."""
 
 import numpy as np
 import pytest
@@ -514,3 +521,113 @@ def test_exact_repair_candidates_through_the_kernel_on_card(dev,
     assert got.shape == want.shape == (512, 100)
     assert (got == want).float().mean().item() >= 0.999
     assert not torch.isin(got, scan).any()
+
+
+def _sharded_corpus(n, dim, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.random((max(2, n // 250), dim)).astype(np.float32)
+    return (centers[rng.integers(0, centers.shape[0], n)]
+            + 0.03 * rng.standard_normal((n, dim)).astype(np.float32))
+
+
+def test_sharded_exact_query_runs_the_kernel_on_card(dev, monkeypatch):
+    """A 6,000 x 128 ShardedIndex on two shards of the one card:
+    ``knn_query(exact=True)`` launches the lane-min kernel on each shard,
+    and one shard's scan (its 8,192-row prefix, 4,096 lanes, as the exact
+    path calls exact_knn2) gives the plain version's ids on >= 0.999 of
+    entries; the answers are the brute-force top-10 (recall >= 0.99)."""
+    from hnswindex_torch.index import EXACT_LANES
+    from hnswindex_torch.parallel.sharded import ShardedIndex
+    n, dim = 6000, 128
+    vecs = _sharded_corpus(n, dim, 31)
+    ix = ShardedIndex(dim, parameters=T.HNSWParameters(collection_size=n),
+                      devices=[dev, dev])
+    gids = ix.add(vecs)
+    q = vecs[:300] + 0.01
+    n0 = TF.lane_min_scan.launches
+    ids, _ = ix.knn_query(q, 10, exact=True)
+    assert TF.lane_min_scan.launches - n0 == 2
+    d = ((q[:, None, :].astype(np.float64) - vecs[None]) ** 2).sum(-1)
+    gt = gids[np.argsort(d, axis=1)[:, :10]]
+    rec = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, gt)])
+    assert rec >= 0.99, rec
+    st = ix._states[1]
+    ns = ix._exact_nscan()
+    args = ("sq_euclid", st.vectors, st.coarse_table[:ns], st.norms[:ns],
+            st.active[:ns], torch.as_tensor(q).to(dev), 10)
+    _, got = TB.exact_knn2(*args, lanes=EXACT_LANES)
+    monkeypatch.setattr(TF, "lane_min_scan", TF.lane_min_scan_ref)
+    _, want = TB.exact_knn2(*args, lanes=EXACT_LANES)
+    assert (got == want).float().mean().item() >= 0.999
+
+
+def _shard_edges(ix):
+    out = []
+    for st in ix._states:
+        nbr, deg = st.nbr0.cpu().numpy(), st.deg0.cpu().numpy()
+        out.append({(u, int(v)) for u in range(nbr.shape[0])
+                    for v in nbr[u, :deg[u]]})
+    return out
+
+
+def test_sharded_build_through_the_kernel_on_card(dev, monkeypatch):
+    """A 3,000 x 128 sharded build on ``[card] * 2`` with the two-stage scan
+    gate lowered to 0, so every full-width wave scans through the kernel,
+    against the same build on ``["cpu"] * 2`` (the plain scan): kernel
+    launches > 0 and each shard's layer-0 edges overlap >= 0.99."""
+    from hnswindex_torch.parallel.sharded import ShardedIndex
+    monkeypatch.setattr(TC, "BUILD_SCAN2_MIN", 0)
+    n, dim = 3000, 128
+    vecs = _sharded_corpus(n, dim, 37)
+    built = {}
+    for where in ("cpu", dev):
+        ix = ShardedIndex(dim, parameters=T.HNSWParameters(collection_size=n),
+                          devices=[where, where])
+        n0 = TF.lane_min_scan.launches
+        ix.add(vecs)
+        launched = TF.lane_min_scan.launches - n0
+        assert (launched > 0) == (where != "cpu")
+        built[str(where)] = ix
+    for a, b in zip(_shard_edges(built["cpu"]), _shard_edges(built[str(dev)])):
+        assert len(a & b) / len(a | b) >= 0.99
+    ids, _ = built[str(dev)].knn_query(vecs[:500], 1)
+    gids = np.arange(n)            # round-robin from an empty index
+    assert (ids[:, 0] == gids[:500]).mean() > 0.85
+
+
+def test_sharded_block_index_runs_the_kernel_on_card(dev):
+    """A 3,000 x 32 ShardedBlockIndex (64-row blocks) on two shards of the
+    card: ``knn_query`` launches K2 on both shards; each shard's K2 panel
+    selects the plain ``_score_blocks`` top-10 on the same local probes (up
+    to float64 near-ties); every block probed gives the brute-force
+    top-10."""
+    from hnswindex_torch import block as TBL
+    n, dim = 3000, 32
+    vecs = _sharded_corpus(n, dim, 41)
+    ix = T.ShardedBlockIndex(dim, block_size=64, devices=[dev, dev])
+    ix.build(vecs)
+    q = vecs[:200] + 0.01
+    n0 = TBS.block_scores.launches
+    ids, _ = ix.knn_query(q, 10, n_probe=8)
+    assert TBS.block_scores.launches - n0 == 2
+    qt = torch.as_tensor(q).to(dev)
+    gb = TBL._route_exact(ix.metric, ix._cents, ix._cent_norms, qt, 8,
+                          ix._cent_valid)
+    d64 = ((q[:, None, :].astype(np.float64) - vecs[None]) ** 2).sum(-1)
+    for s in range(2):
+        local = ix._shard_probes(gb, s)
+        bv = ix._blk_vecs[s]
+        _, pid = TBL._score_blocks_panel(ix.metric, bv, ix._blk_ids[s],
+                                         ix._blk_fill[s], qt, local, 10)
+        norms = tdst.norm_data(ix.metric, bv.reshape(-1, dim)) \
+            .reshape(bv.shape[:2])
+        _, rid = TBL._score_blocks(ix.metric, bv, ix._blk_ids[s], norms, qt,
+                                   local, 10)
+        pid, rid = pid[:, :10].cpu().numpy(), rid.cpu().numpy()
+        for r, c in zip(*np.nonzero(pid != rid)):
+            a, b = pid[r, c], rid[r, c]
+            assert a >= 0 and b >= 0 and abs(d64[r, a] - d64[r, b]) <= 1e-5
+    full, _ = ix.knn_query(q, 10, n_probe=ix.n_blocks)
+    gt = np.argsort(d64, axis=1)[:, :10]
+    rec = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(full, gt)])
+    assert rec > 0.999, rec
