@@ -16,11 +16,14 @@ rows untraced, then traces with ``torch.profiler``:
    after a warm-up call), every batch scoring through the block-scores
    kernel.
 
-For each it prints the host wall time, the device busy share (union of the
-traced device events' intervals over the wall time, from
-``hnswindex_torch.utils.profiling.trace``) and the largest device-event
-rows; for the build also the per-phase split and the kernel's launches,
-for the block query the block-scores kernel's launches.
+For each it prints the window's host time, the device's busy time and
+share (``hnswbench/trace.py``: the union of the traced device events'
+intervals over the window), the device operations that took most time and
+the idle gaps by what the host was doing; for the build also the idle
+seconds by the innermost ``PhaseTimer`` region open at each gap's middle
+(``hnswindex_torch.utils.profiling.idle_by_region``), the per-phase split
+with host self times and the kernel's launches, for the block query the
+block-scores kernel's launches.
 Exits non-zero without a CUDA device.
 """
 
@@ -30,19 +33,33 @@ import json
 import sys
 import time
 
+from hnswbench import trace as tracing
+
 N = 1_000_000
 PREFIX = 990_000
 NQ = 2_048
-TOP = 15
 
 
-def report(name: str, res: dict) -> None:
-    print(f"== {name}: wall {res['wall_s']:.4f} s, device busy "
-          f"{res['busy_s']:.4f} s, busy share {res['busy_share']:.4f}",
-          flush=True)
-    for key, sec, count in res["rows"][:TOP]:
-        print(f"   {sec * 1e3:10.3f} ms  x{count:6d}  {key[:90]}",
-              flush=True)
+def traced(fn, device):
+    """Run ``fn()`` in a traced window; returns the window's summary and
+    the device's merged busy intervals."""
+    w = tracing.Window(device)
+    w.start()
+    fn()
+    w.stop()
+    dev, host = tracing._events(w._prof, True)
+    merged, _ = tracing.union(dev)
+    return tracing.summarize(dev, host, w.window_s), merged
+
+
+def report(name: str, summ: dict) -> None:
+    print(f"== {name}: window {summ['window_s']:.4f} s, device busy "
+          f"{summ['busy_s']:.4f} s, busy share "
+          f"{summ['busy_s'] / summ['window_s']:.4f}", flush=True)
+    for key, sec in summ["device_ops"]:
+        print(f"   {sec * 1e3:10.3f} ms  {key[:90]}", flush=True)
+    for key, sec in summ["idle_gaps"]:
+        print(f"   {sec * 1e3:10.3f} ms idle  {key[:90]}", flush=True)
 
 
 def main() -> int:
@@ -55,7 +72,7 @@ def main() -> int:
     from hnswindex_torch import BlockIndex, HNSWIndex, HNSWParameters
     from hnswindex_torch.ops import block_scores as BSC
     from hnswindex_torch.ops import fused_scan as FS
-    from hnswindex_torch.utils.profiling import PhaseTimer, trace
+    from hnswindex_torch.utils.profiling import PhaseTimer, idle_by_region
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -72,8 +89,10 @@ def main() -> int:
 
     idx.timer = PhaseTimer(idx.device)
     FS.lane_min_scan.launches = 0
-    res = trace(lambda: idx.add(vecs[PREFIX:]), idx.device)
-    report(f"build {N - PREFIX} rows (waves at ~{PREFIX} rows)", res)
+    summ, busy = traced(lambda: idx.add(vecs[PREFIX:]), idx.device)
+    report(f"build {N - PREFIX} rows (waves at ~{PREFIX} rows)", summ)
+    for key, sec in idle_by_region(busy, idx.timer.spans()).items():
+        print(f"   {sec * 1e3:10.3f} ms idle in region {key}", flush=True)
     print(f"phases {json.dumps(idx.timer.seconds())}; lane_min_scan "
           f"launches {FS.lane_min_scan.launches}", flush=True)
     if FS.lane_min_scan.launches <= 0:
@@ -82,8 +101,8 @@ def main() -> int:
 
     q = vecs[:NQ]
     idx.knn_query(q[:8], 10)
-    report(f"knn_query {NQ} x k=10", trace(lambda: idx.knn_query(q, 10),
-                                           idx.device))
+    report(f"knn_query {NQ} x k=10",
+           traced(lambda: idx.knn_query(q, 10), idx.device)[0])
 
     dev = idx.device
     del idx
@@ -97,7 +116,7 @@ def main() -> int:
     bix.knn_query(q[:8], 10, n_probe=S.K2_P)
     BSC.block_scores.launches = 0
     report(f"BlockIndex.knn_query {NQ} x k=10 n_probe={S.K2_P}",
-           trace(lambda: bix.knn_query(q, 10, n_probe=S.K2_P), dev))
+           traced(lambda: bix.knn_query(q, 10, n_probe=S.K2_P), dev)[0])
     print(f"block_scores launches {BSC.block_scores.launches}", flush=True)
     if BSC.block_scores.launches <= 0:
         print("FAIL: the traced block query never launched block_scores")

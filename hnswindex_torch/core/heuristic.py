@@ -37,7 +37,13 @@ def _accept_cols(by_col: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros((B, N), dtype=torch.bool, device=by_col.device)
     for c in range(N):
         acc[:, c] = ~torch.any(by_col[:, c, :c] & acc[:, :c], dim=1)
+    _accept_cols.steps += N
     return acc
+
+
+#: column steps ``_accept_cols`` has taken, summed over its calls in this
+#: process: each step is a handful of small launches
+_accept_cols.steps = 0
 
 
 #: Bytes of the (B, cols, N, D) broadcast a registered metric's pairwise

@@ -351,7 +351,8 @@ class HNSWIndex:
         self._upper_holes = 0
         self._upper_ids: Optional[torch.Tensor] = None
         self._scan_hwm = 0           # 1 + highest slot ever activated
-        #: per-phase build times (scan, prune, reverse, upper, ...)
+        #: per-phase build times (wave, scan, prune, reverse, upper, pack,
+        #: ...) and their host self times
         self.timer = PhaseTimer(self.device)
         #: waves inserted on each build path
         self.wave_counts = {"exact": 0, "beam": 0}
@@ -437,19 +438,22 @@ class HNSWIndex:
         mw = min(self.params.max_wave_size, WAVE_BUCKETS[-1])
         k = i
         while k < n:
-            w = min(mw, max(1, self._count_host), n - k)
-            upc = np.cumsum(lvls[k:k + w] >= 1)
-            if w > MAX_UPPER and upc[-1] > MAX_UPPER:
-                w = int(np.searchsorted(upc, MAX_UPPER, side="right"))
-            self._scan_hwm = max(self._scan_hwm, int(hwm[k - i + w - 1]))
-            wl = lvls[k:k + w]
-            up = np.flatnonzero(wl >= 1)
-            self._insert_wave(ids_d[k:k + w], vecs_d[k:k + w],
-                              lvls_d[k:k + w], up,
-                              int(wl.max()) if up.size else 0,
-                              full=_bucket(w, WAVE_BUCKETS) >= mw)
-            self._count_host += w
-            k += w
+            # the wave's own host work is the region's self time
+            with self.timer.phase("wave"):
+                w = min(mw, max(1, self._count_host), n - k)
+                upc = np.cumsum(lvls[k:k + w] >= 1)
+                if w > MAX_UPPER and upc[-1] > MAX_UPPER:
+                    w = int(np.searchsorted(upc, MAX_UPPER, side="right"))
+                self._scan_hwm = max(self._scan_hwm,
+                                     int(hwm[k - i + w - 1]))
+                wl = lvls[k:k + w]
+                up = np.flatnonzero(wl >= 1)
+                self._insert_wave(ids_d[k:k + w], vecs_d[k:k + w],
+                                  lvls_d[k:k + w], up,
+                                  int(wl.max()) if up.size else 0,
+                                  full=_bucket(w, WAVE_BUCKETS) >= mw)
+                self._count_host += w
+                k += w
 
     def _insert_wave(self, wid, wvec, wlvl, up: np.ndarray, max_lvl: int,
                      full: bool) -> None:
@@ -621,28 +625,30 @@ class HNSWIndex:
         if res_dtype is None:
             self._pack_refusal = "budget"
             return None
-        # entry set: the lowest upper level whose population fits the scan
-        lvl = self._state.level.cpu().numpy()
-        act = self._state.active.cpu().numpy()
-        eids = None
-        cap = PK.entry_scan_cap(self.metric)
-        for layer in range(1, self._state.num_levels):
-            members = np.flatnonzero((lvl >= layer) & act)
-            if members.size <= cap:
-                eids = members
-                break
-        if eids is None or eids.size == 0:
-            ep = int(self._state.ep)
-            if ep < 0:
-                self._pack_refusal = "no_entry"
-                return None
-            eids = np.asarray([ep])
-        S = 1 << max(0, int(eids.size - 1).bit_length())
-        padded = np.full(S, -1, np.int32)
-        padded[:eids.size] = eids
-        self._pack = PK.make_query_pack(
-            self._cfg, self._state, torch.as_tensor(padded).to(self.device),
-            res_dtype)
+        with self.timer.phase("pack"):
+            # entry set: the lowest upper level whose population fits the
+            # scan
+            lvl = self._state.level.cpu().numpy()
+            act = self._state.active.cpu().numpy()
+            eids = None
+            cap = PK.entry_scan_cap(self.metric)
+            for layer in range(1, self._state.num_levels):
+                members = np.flatnonzero((lvl >= layer) & act)
+                if members.size <= cap:
+                    eids = members
+                    break
+            if eids is None or eids.size == 0:
+                ep = int(self._state.ep)
+                if ep < 0:
+                    self._pack_refusal = "no_entry"
+                    return None
+                eids = np.asarray([ep])
+            S = 1 << max(0, int(eids.size - 1).bit_length())
+            padded = np.full(S, -1, np.int32)
+            padded[:eids.size] = eids
+            self._pack = PK.make_query_pack(
+                self._cfg, self._state,
+                torch.as_tensor(padded).to(self.device), res_dtype)
         return self._pack
 
     def _get_block_fallback(self):

@@ -1,101 +1,146 @@
-"""Per-phase timing of the build.
+"""Per-phase timing of the build, and the regions it leaves behind.
 
-``PhaseTimer.phase(name)`` brackets a region.  On a CUDA device it records
-a pair of CUDA events on the current stream, so timing adds no host
-synchronisation; ``seconds()`` synchronises once and sums the event pairs.
-On the CPU it sums host wall time.  Nested regions are each counted in full
-(a region's time includes the regions inside it).
+``PhaseTimer.phase(name)`` brackets a region, and records it three ways:
 
-``trace(fn, device)`` runs ``fn`` once under ``torch.profiler`` and reports
-how busy the device was: the union of the intervals of the events that ran
-on it, over the host wall time of the call.
+* stream time: on a CUDA device a pair of CUDA events on the current
+  stream, so timing adds no host synchronisation (on the CPU, host wall
+  time).  Once ``FOLD_AT`` closed pairs are held, those whose end event
+  has completed (looked at without a synchronisation) are folded into
+  their names' totals and their events are reused; ``seconds()`` waits
+  for the rest.  Nested regions are each counted in full (a region's time
+  includes the regions inside it).  Stream time runs from a region's
+  first marker to its last on the stream, whether the device worked or
+  waited for the host's next launch in between.
+* host self time: the region's host interval, stamped with
+  ``time.time_ns()``, less the host intervals of the regions opened inside
+  it.  ``seconds()`` gives it as ``<name>.host``.  The self times of a
+  region and of everything inside it add up to the region's host time.
+* the last ``SPANS`` closed regions as ``(name, start_ns, end_ns,
+  parent)``, ``parent`` being the innermost region open on the same timer
+  (None at the top), from ``spans()``.  ``time.time_ns()`` is the clock
+  ``torch.profiler`` stamps its events with, so ``idle_by_region`` can join
+  a device trace with them.
+
+No region becomes a ``torch.profiler`` range: a range that launches
+kernels also leaves a device-side event of its name in the trace, which a
+reader of the device's busy time would count as device work.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
-import math
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 
 import torch
+
+#: closed regions kept for ``spans()``
+SPANS = 4096
+#: closed regions' event pairs held before the completed ones are folded
+FOLD_AT = 64
+#: ``idle_by_region``'s name for a gap that no region covers
+OUTSIDE = "outside any region"
 
 
 class PhaseTimer:
     def __init__(self, device: torch.device | str):
         self.cuda = torch.device(device).type == "cuda"
-        self._events: dict = defaultdict(list)
-        self._host: dict = defaultdict(float)
+        # stream seconds per name: folded event pairs, or host wall time
+        self._total: dict = defaultdict(float)
+        self._self_ns: dict = defaultdict(int)
+        # (name, start event, end event) of closed regions, oldest first
+        self._pending: deque = deque()
+        self._free: list = []        # folded event pairs, to reuse
+        # [name, host ns of the regions inside it] per open region
+        self._open: list = []
+        self._spans: deque = deque(maxlen=SPANS)
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        parent = self._open[-1][0] if self._open else None
+        frame = [name, 0]
+        self._open.append(frame)
         if self.cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+            start, end = self._free.pop() if self._free else (
+                torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        t0 = time.time_ns()
+        if self.cuda:
             start.record()
-            try:
-                yield
-            finally:
+        try:
+            yield
+        finally:
+            if self.cuda:
                 end.record()
-                self._events[name].append((start, end))
-        else:
-            t0 = time.perf_counter()
-            try:
-                yield
-            finally:
-                self._host[name] += time.perf_counter() - t0
+            t1 = time.time_ns()
+            self._open.pop()
+            dt = t1 - t0
+            self._self_ns[name] += dt - frame[1]
+            if self._open:
+                self._open[-1][1] += dt
+            self._spans.append((name, t0, t1, parent))
+            if self.cuda:
+                self._pending.append((name, start, end))
+                if len(self._pending) >= FOLD_AT:
+                    self._fold()
+            else:
+                self._total[name] += dt / 1e9
+
+    def _fold(self, wait: bool = False) -> None:
+        """Fold the oldest pairs whose end event has completed (all of
+        them, waiting for each, with ``wait``)."""
+        q = self._pending
+        while q:
+            name, s, e = q[0]
+            if wait:
+                e.synchronize()
+            elif not e.query():
+                break
+            q.popleft()
+            self._total[name] += s.elapsed_time(e) / 1e3
+            self._free.append((s, e))
+
+    def held_events(self) -> int:
+        """CUDA events the timer holds: pairs not folded yet, and folded
+        ones kept for reuse."""
+        return 2 * (len(self._pending) + len(self._free))
 
     def seconds(self) -> dict:
-        """Summed seconds per phase name."""
-        out = dict(self._host)
-        if self._events:
-            torch.cuda.synchronize()
-            for name, pairs in self._events.items():
-                out[name] = out.get(name, 0.0) + sum(
-                    s.elapsed_time(e) for s, e in pairs) / 1e3
+        """Summed stream seconds per phase name, and host self seconds
+        per name under ``<name>.host``."""
+        self._fold(wait=True)
+        out = dict(self._total)
+        out.update((f"{n}.host", ns / 1e9) for n, ns in self._self_ns.items())
         return out
 
+    def spans(self) -> list:
+        """The last ``SPANS`` closed regions, ``(name, start_ns, end_ns,
+        parent)``, in the order they closed."""
+        return list(self._spans)
 
-def trace(fn, device: torch.device | str) -> dict:
-    """Run ``fn()`` once under ``torch.profiler``.
 
-    Returns ``wall_s`` (host seconds, device synchronised at both ends),
-    ``busy_s`` (union of the intervals of the events that ran on
-    ``device``: kernels, copies and fills on a card, operators on the CPU,
-    so overlapping or nested events count once), ``busy_share`` =
-    busy_s / wall_s, and ``rows``: (name, seconds, count) per event name on
-    ``device``, largest first."""
-    from torch.profiler import ProfilerActivity, profile
+def idle_by_region(busy, spans) -> dict:
+    """Seconds of the device's idle gaps by the innermost region open at
+    each gap's middle (``OUTSIDE`` where none was).
 
-    dev = torch.device(device)
-    cuda = dev.type == "cuda"
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    want = (torch.autograd.DeviceType.CUDA if cuda
-            else torch.autograd.DeviceType.CPU)
-    if cuda:
-        torch.cuda.synchronize(dev)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        if cuda:
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    spans = []
-    by_name: dict = defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if ev.device_type != want:
-            continue
-        s, e = ev.time_range.start, ev.time_range.end
-        spans.append((s, e))
-        by_name[ev.name][0] += (e - s) / 1e6
-        by_name[ev.name][1] += 1
-    busy, hi = 0.0, -math.inf
-    for s, e in sorted(spans):
-        if e > hi:
-            busy += e - max(s, hi)
-            hi = e
-    busy /= 1e6
-    rows = sorted(((k, v[0], v[1]) for k, v in by_name.items()),
-                  key=lambda r: -r[1])
-    return dict(wall_s=wall, busy_s=busy, busy_share=busy / wall,
-                rows=rows)
+    ``busy`` are the device's merged busy intervals ``(start_ns, end_ns)``,
+    sorted, from a ``torch.profiler`` trace; ``spans`` are
+    ``PhaseTimer.spans()`` of the same process, on the same clock.  Only
+    the gaps between busy intervals count.  Largest first."""
+    spans = sorted(spans, key=lambda s: s[1])
+    starts = [s[1] for s in spans]
+    out: dict = defaultdict(float)
+    for (_, e0), (s1, _) in zip(busy, busy[1:]):
+        mid = (e0 + s1) // 2
+        name = OUTSIDE
+        for j in range(bisect.bisect_right(starts, mid) - 1, -1, -1):
+            if spans[j][2] >= mid:
+                name = spans[j][0]
+                break
+            if spans[j][3] is None:
+                # regions at the top close before the next opens: none
+                # earlier covers the gap
+                break
+        out[name] += (s1 - e0) / 1e9
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))

@@ -18,6 +18,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from ..ops import distance as dst
 
@@ -30,7 +31,19 @@ def refine_pairs(metric: str, q: np.ndarray, ids: np.ndarray,
     ``q (B, D)``, ``ids (B, W)`` int (-1 pad), ``cand_vecs (B, W, D)`` the
     stored vectors of those ids (rows for -1 entries may be garbage).
     Returns (ids (B, k) int32, dists (B, k) f32) ascending with -1/NaN
-    padding (HNSWIndexExports.cs:144)."""
+    padding (HNSWIndexExports.cs:144).
+
+    While ``torch.profiler`` records, the call is the range
+    ``hnsw/refine``: host work only, so the range leaves no device event."""
+    if _profiler._is_profiler_enabled:
+        with _profiler.record_function("hnsw/refine"):
+            return _refine_pairs(metric, q, ids, cand_vecs, k)
+    return _refine_pairs(metric, q, ids, cand_vecs, k)
+
+
+def _refine_pairs(metric: str, q: np.ndarray, ids: np.ndarray,
+                  cand_vecs: np.ndarray, k: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
     B = q.shape[0]
     ids = np.asarray(ids)
     if ids.shape[1] < k:

@@ -27,7 +27,9 @@ version's ids on >= 0.999 of entries and its answers recall@10 >= 0.99; a
 sharded build through the kernel (gate lowered to 0) overlaps the CPU
 build's layer-0 edges at >= 0.99 on each shard; ShardedBlockIndex
 launches K2 on each shard, each shard's panel selects the plain
-_score_blocks top-10 up to float64 near-ties, and full probing is exact."""
+_score_blocks top-10 up to float64 near-ties, and full probing is exact.
+Under the profiler no device event bears a program range's name, and the
+phase timer holds few CUDA events over 10,000 regions."""
 
 import numpy as np
 import pytest
@@ -263,14 +265,67 @@ def test_build_on_card_runs_the_kernel(dev, monkeypatch):
     assert (ids[:, 0] == np.arange(n)).mean() > 0.85
 
 
+def _traced(fn, dev):
+    """(summary, device events, host events) of ``fn()`` run in the
+    benchmark's traced window."""
+    from hnswbench import trace as tracing
+    w = tracing.Window(dev)
+    w.start()
+    fn()
+    w.stop()
+    dev_ev, host_ev = tracing._events(w._prof, True)
+    return tracing.summarize(dev_ev, host_ev, w.window_s), dev_ev, host_ev
+
+
 def test_trace_sees_the_kernel_on_card(dev):
-    from hnswindex_torch.utils.profiling import trace
     args = _scan_case("sq_euclid", 8192 * 4, 128, 512, dev)
     TF.lane_min_scan(*args)                         # build and warm up
-    res = trace(lambda: TF.lane_min_scan(*args), dev)
-    names = [r[0] for r in res["rows"]]
+    res, dev_ev, _ = _traced(lambda: TF.lane_min_scan(*args), dev)
+    names = [e[2] for e in dev_ev]
     assert any("lane_min_scan" in n for n in names), names
-    assert 0.0 < res["busy_s"] <= res["wall_s"]
+    assert 0.0 < res["busy_s"] <= res["window_s"]
+
+
+def test_profiler_sees_no_program_range_on_card(dev):
+    """A mirrored ``knn_query`` (the float64 host refine) under the
+    profiler: the refine's range is a host event, and no device event
+    carries the name of a program range or region."""
+    n, dim = 2000, 32
+    rng = np.random.default_rng(8)
+    vecs = rng.random((n, dim)).astype(np.float32)
+    idx = T.HNSWIndex(dim, "sq_euclid", T.HNSWParameters(
+        collection_size=n, pack_queries="on", pack_min_count=0), device=dev)
+    idx.add(vecs)
+    idx.knn_query(vecs[:64], 10)                    # pack and host mirror
+    assert idx._mirrorable()
+    _, dev_ev, host_ev = _traced(lambda: idx.knn_query(vecs[:256], 10), dev)
+    assert dev_ev
+    assert "hnsw/refine" in {e[2] for e in host_ev}
+    regions = {name for name, *_ in idx.timer.spans()}
+    bad = {e[2] for e in dev_ev
+           if e[2].startswith("hnsw/") or e[2] in regions}
+    assert not bad, bad
+
+
+def test_phase_timer_holds_few_events_on_card(dev):
+    """Event pairs fold into their totals as regions close: 10,000 regions
+    leave few CUDA events held, and the totals agree with the host's."""
+    from hnswindex_torch.utils.profiling import SPANS, PhaseTimer
+    timer = PhaseTimer(dev)
+    x = torch.zeros(1024, device=dev)
+    held = 0
+    for i in range(10_000):
+        with timer.phase("outer"):
+            with timer.phase("inner"):
+                x.add_(1.0)
+        held = max(held, timer.held_events())
+    assert held <= 512, held
+    got = timer.seconds()
+    assert timer.held_events() <= 512
+    assert float(x[0]) == 10_000.0
+    assert 0.0 < got["inner"] <= got["outer"]
+    assert 0.0 < got["inner.host"] and 0.0 < got["outer.host"]
+    assert len(timer.spans()) == SPANS
 
 
 def _blocks_case(metric, NB, BS, D, B, P, dtype, dev, seed=11):

@@ -1,13 +1,28 @@
 """hnswindex_torch.utils.profiling on the CPU: the phase timer sums its
-regions, and ``trace`` counts nested events once in the busy time."""
+regions, takes a nested region's host time off its parent's, keeps a
+bounded ring of spans on the profiler's clock, and the device's idle gaps
+join those spans; the refine opens its profiler range only while a
+profiler records; the accept scan counts its column steps; and every
+per-layer metric reader of the build's regions reads a number from a tiny
+build."""
 
+import importlib.util
 import time
+from pathlib import Path
 
+import numpy as np
+import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from hnswindex_torch.utils.profiling import PhaseTimer, trace
+import hnswindex_torch as T
+from hnswindex_torch.core import heuristic
+from hnswindex_torch.utils import profiling, refine
+from hnswindex_torch.utils.profiling import PhaseTimer, idle_by_region
 
 torch.set_num_threads(1)
+
+METRICS = Path(__file__).resolve().parents[1] / "hnswbench" / "metrics"
 
 
 def test_phase_timer_sums_regions_per_name():
@@ -18,16 +33,165 @@ def test_phase_timer_sums_regions_per_name():
     with timer.phase("b"):
         pass
     got = timer.seconds()
-    assert set(got) == {"a", "b"}
+    assert set(got) == {"a", "b", "a.host", "b.host"}
     assert got["a"] >= 0.03 and got["b"] < got["a"]
 
 
-def test_trace_counts_nested_events_once():
+def test_nested_region_comes_off_the_parents_host_time():
+    timer = PhaseTimer("cpu")
+    with timer.phase("outer"):
+        time.sleep(0.01)
+        with timer.phase("inner"):
+            time.sleep(0.03)
+    got = timer.seconds()
+    # the stream names count each region in full
+    assert got["outer"] >= got["inner"] >= 0.03
+    assert got["inner.host"] == pytest.approx(got["inner"], abs=1e-6)
+    assert 0.01 <= got["outer.host"] < 0.03
+    assert got["outer.host"] + got["inner.host"] == pytest.approx(
+        got["outer"], abs=1e-6)
+    (n1, s1, e1, p1), (n0, s0, e0, p0) = timer.spans()
+    assert (n1, p1) == ("inner", "outer") and (n0, p0) == ("outer", None)
+    assert s0 <= s1 <= e1 <= e0
+
+
+def test_span_ring_keeps_the_last_regions():
+    timer = PhaseTimer("cpu")
+    for i in range(10_000):
+        with timer.phase(f"r{i % 3}"):
+            pass
+    spans = timer.spans()
+    assert len(spans) == profiling.SPANS == 4096
+    assert [s[0] for s in spans] == [f"r{i % 3}"
+                                     for i in range(10_000 - 4096, 10_000)]
+    assert all(s[1] <= s[2] for s in spans)
+
+
+def test_region_shares_the_profilers_clock():
+    timer = PhaseTimer("cpu")
     a = torch.randn(256, 256)
-    res = trace(lambda: [a @ a for _ in range(10)], "cpu")
-    rows = {name: (sec, count) for name, sec, count in res["rows"]}
-    assert rows["aten::mm"][1] == 10
-    # aten::matmul encloses aten::mm: the union is below the rows' sum
-    assert res["busy_s"] < sum(sec for _, sec, _ in res["rows"])
-    assert 0.0 < res["busy_s"] <= res["wall_s"]
-    assert res["busy_share"] == res["busy_s"] / res["wall_s"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timer.phase("mm"):
+            a @ a
+    (_, s, e, _), = timer.spans()
+    mm = [ev for ev in prof.profiler.kineto_results.events()
+          if ev.name() == "aten::mm"]
+    assert mm
+    for ev in mm:
+        assert s <= ev.start_ns() <= ev.start_ns() + ev.duration_ns() <= e
+
+
+def test_idle_gaps_go_to_the_innermost_open_region():
+    spans = [("child", 20, 40, "wave"), ("wave", 10, 60, None),
+             ("wave", 100, 120, None)]
+    busy = [(0, 5), (25, 30), (35, 50), (55, 110), (130, 140)]
+    got = idle_by_region(busy, spans)
+    # gaps 5-25 (mid 15: wave), 30-35 (child), 50-55 (wave), 110-130
+    # (mid 120: wave's end)
+    assert got == pytest.approx({"wave": 45e-9, "child": 5e-9})
+    assert idle_by_region([(60, 65), (90, 95)], spans) == pytest.approx(
+        {profiling.OUTSIDE: 25e-9})
+
+
+def _refine_args():
+    rng = np.random.default_rng(3)
+    q = rng.random((4, 8)).astype(np.float32)
+    ids = rng.integers(-1, 50, (4, 12))
+    return q, ids, rng.random((4, 12, 8)).astype(np.float32)
+
+
+@pytest.mark.parametrize("recording", [False, True],
+                         ids=["off", "under_profiler"])
+def test_refine_opens_its_range_only_while_recording(recording,
+                                                     monkeypatch):
+    q, ids, cv = _refine_args()
+    want = refine._refine_pairs("sq_euclid", q, ids, cv, 5)
+    opened = []
+    real = refine._profiler.record_function
+
+    def spy(name):
+        opened.append(name)
+        return real(name)
+
+    monkeypatch.setattr(refine._profiler, "record_function", spy)
+    if recording:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = refine.refine_pairs("sq_euclid", q, ids, cv, 5)
+        names = {ev.name() for ev in prof.profiler.kineto_results.events()}
+        assert "hnsw/refine" in names
+        assert opened == ["hnsw/refine"]
+    else:
+        got = refine.refine_pairs("sq_euclid", q, ids, cv, 5)
+        assert opened == []
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def _corpus(n=600, dim=16, seed=5):
+    rng = np.random.default_rng(seed)
+    centers = rng.random((n // 200, dim)).astype(np.float32)
+    return (centers[rng.integers(0, n // 200, n)]
+            + 0.03 * rng.standard_normal((n, dim)).astype(np.float32))
+
+
+def test_accept_steps_count_every_prune_column(monkeypatch):
+    widths = []
+    real = heuristic.prune
+
+    def spy(metric, cand_ids, *args, **kw):
+        widths.append(cand_ids.shape[1])
+        return real(metric, cand_ids, *args, **kw)
+
+    monkeypatch.setattr(heuristic, "prune", spy)
+    vecs = _corpus()
+    idx = T.HNSWIndex(16, "sq_euclid", T.HNSWParameters(
+        collection_size=600, max_wave_size=64), device="cpu")
+    before = heuristic._accept_cols.steps
+    idx.add(vecs)
+    assert len(widths) > 10
+    assert heuristic._accept_cols.steps - before == sum(widths)
+
+
+@pytest.fixture(scope="module")
+def tiny_ctx():
+    """The ``ctx`` a traced benchmark run hands its readers, from a tiny
+    build and its first query (which builds the pack)."""
+    vecs = _corpus()
+    idx = T.HNSWIndex(16, "sq_euclid", T.HNSWParameters(
+        collection_size=600, max_wave_size=64, pack_queries="on",
+        pack_min_count=0), device="cpu")
+    t0 = time.perf_counter()
+    idx.add(vecs)
+    add_s = time.perf_counter() - t0
+    idx.knn_query(vecs[:8], 5)
+    return dict(setup=dict(rows=600, add_s=add_s, first_query_s=0.0),
+                phases=idx.timer.seconds(), config={}, card="")
+
+
+def _reader(name):
+    spec = importlib.util.spec_from_file_location(
+        "metric_" + name.replace(".", "_"), METRICS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+@pytest.mark.parametrize("name", [
+    "build.wave_host_ms_per_krow", "build.upper_host_ms_per_krow",
+    "build.scan_host_ms_per_krow", "build.prune_host_ms_per_krow",
+    "build.reverse_host_ms_per_krow", "build.accept_steps_per_krow",
+    "setup.pack_build_s"])
+def test_metric_reader_reads_a_tiny_build(tiny_ctx, name):
+    v = _reader(name)(tiny_ctx)
+    assert isinstance(v, float) and v > 0, v
+    # an index without the regions (the parent program) reads nothing
+    if name != "build.accept_steps_per_krow":
+        assert _reader(name)(dict(tiny_ctx, phases={})) is None
+
+
+def test_host_times_tile_the_add(tiny_ctx):
+    ph = tiny_ctx["phases"]
+    parts = sum(ph[f"{n}.host"]
+                for n in ("wave", "upper", "scan", "prune", "reverse"))
+    assert parts == pytest.approx(ph["wave"], rel=1e-6)
+    assert parts <= tiny_ctx["setup"]["add_s"]
