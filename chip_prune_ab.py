@@ -15,9 +15,15 @@ forward prune at efConstruction=100), 136 and 424 (the removal repair's
 two tiers), each keeping 32 edges.  The two versions alternate, A B A B,
 for 7 rounds after a warm-up of each; each call is timed on the host
 clock around ``torch.cuda.synchronize()``.  Prints, per width, the median
-ms of each and whether their selections and counts are identical, then
-one JSON line.  Exits non-zero without a CUDA device, or if the two
-versions select differently.
+ms of each and whether their selections and counts are identical.  Then
+it times the accept kernel (K3, ``ops/accept_scan``) alone on the inputs
+this checkout's ``prune`` hands it at each width, with
+``chip_smoke.k3_measure``: K3's device time a launch from a profiler trace
+of 200 launches, CUDA events around 200 launches, the plain twin
+(``heuristic._accept_capped``) and K3's bound by bytes; it fails if K3 and
+its twin differ.  Last, one JSON line.  Exits non-zero without a CUDA
+device, or if the two versions select differently, or K3 and its twin
+differ.
 """
 
 from __future__ import annotations
@@ -104,7 +110,14 @@ def main() -> int:
         print(f"prune B={ROWS} N={n}: this {row['this_ms']:.3f} ms, other "
               f"{row['other_ms']:.3f} ms (medians of {ROUNDS}); selections "
               f"identical: {same}", flush=True)
-    print(json.dumps({"prune_ab": out, "card": card}), flush=True)
+    k3 = []
+    S.K3.install()
+    for n in WIDTHS:
+        cd, ci = torch.topk(d_all, n, dim=1, largest=False)
+        S.K3.start()
+        mine.prune("sq_euclid", ci, cd, vecs[ci], norms[ci], MAX_EDGES)
+        k3 += S.K3.finish(f"prune B={ROWS} N={n}", timed=True)["timed"]
+    print(json.dumps({"prune_ab": out, "k3": k3, "card": card}), flush=True)
     return 0 if same_all else 1
 
 

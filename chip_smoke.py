@@ -4,9 +4,18 @@
     python3 chip_smoke.py            # 1,000,000 x 128 clustered corpus
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds both CUDA kernels (hnswindex_torch/csrc/fused_scan.cu and
-   block_scores.cu) from source, one nvcc each, started together, and
-   prints the build time.
+2. Builds the three CUDA kernels (hnswindex_torch/csrc/fused_scan.cu,
+   block_scores.cu and accept_scan.cu) from source, one nvcc each, started
+   together, and prints the build time.  From then on every heuristic
+   prune of the run passes its accept through a probe (``K3Probe``) that
+   keeps the inputs of the first prune at each (width, max_edges) of a
+   phase and of the last of its largest.  Where a phase below says "K3
+   checked", K3's launches in that phase are counted from 0 (> 0
+   required) and each kept input is run through K3 and its plain twin
+   (``core/heuristic._accept_capped``), which must be equal; "K3 timed"
+   adds, at each width's largest inputs, K3's device time a launch from a
+   profiler trace of 200 launches, CUDA events around 200 launches, the
+   twin's time and K3's bound by bytes.
 3. Kernel phase, lane-min scan (K1): runs the kernel and its plain PyTorch
    version on the same inputs at the build's shapes (B=512 queries, D=128,
    BS=1024 lanes, C=1,007,616 rows, and a ragged C) and checks vals at
@@ -35,8 +44,9 @@
 4. Main path: ``hnswindex_torch.Index(128, "sq_euclid", device="cuda")``
    with ``set_collection_size`` and ``add`` on the bench's clustered corpus
    (seed 65537, M=16, efConstruction=100, max_wave_size=512); prints
-   inserts/s, per-phase seconds and the kernel's launch count (must be
-   > 0).
+   inserts/s, per-phase seconds and the lane-min kernel's launch count
+   (must be > 0); K3 checked and timed (its forward prune, B=512 at
+   N=100, is the one the kernels line reports).
 5. Queries: ``knn_query(k=10)`` on the first 10,000 corpus rows; prints
    q/s and checks recall@10 >= 0.90 on 1,000 of them against an exact f32
    brute force on the card.
@@ -58,9 +68,10 @@
 6. Beam-path build: an ``Index`` of the first 200,000 rows with
    ``exact_build_threshold=20,000`` (the default is 2^24), so every wave
    past 20,000 built rows takes the beam path; prints inserts/s, the waves
-   on each path and the phase split; packed ``knn_query(k=10)`` on 10,000
-   rows must reach recall@10 >= 0.90 against the exact top-10 within those
-   rows; the unpacked ef=64 recall is printed.
+   on each path and the phase split (K3 checked); packed
+   ``knn_query(k=10)`` on 10,000 rows must reach recall@10 >= 0.90
+   against the exact top-10 within those rows; the unpacked ef=64 recall
+   is printed.
 7. Block path: ``hnswindex_torch.BlockIndex(128, "sq_euclid",
    block_size=128, device="cuda")`` built on the same corpus;
    ``knn_query(k=10, n_probe=32)`` on the same 10,000 rows; recall@10 >=
@@ -92,14 +103,16 @@
    phase split (mark, affected, candidates, repair): count 900,000, the
    entry point active, no live row's edge into a removed row at any layer
    (checked on the card), no removed id among 10,000 queries' answers, and
-   post/pre recall@10 of 1,000 surviving rows >= 0.98.  Then 10,000 fresh
+   post/pre recall@10 of 1,000 surviving rows >= 0.98; K3 checked and
+   timed at the repair's widths.  Then 10,000 fresh
    rows are added (ids = the freed slots, last freed first; recall@1 on
-   themselves >= 0.90; lane-min launches > 0) and 10,000 surviving rows
+   themselves >= 0.90; lane-min launches > 0; K3 checked) and 10,000
+   surviving rows
    updated by the generator's noise (sigma 0.03; ids and count unchanged,
    ``items()`` shows the new vectors, recall@1 by the new vectors >= 0.85
    at ef 64 and printed at the default ef and at 256: the moved rows sit
-   on their clusters' rims; lane-min launches > 0), and packed recall@10
-   of the live rows must stay >= 0.90.
+   on their clusters' rims; lane-min launches > 0; K3 checked), and packed
+   recall@10 of the live rows must stay >= 0.90.
 10. ``BlockIndex(router="hnsw")`` on the same corpus: routed by a graph
     over the centroids, ``knn_query(k=10, n_probe=32)`` on the 10,000 rows
     (q/s beside the exact router's), recall@10 >= 0.90; after adding and
@@ -124,21 +137,24 @@
     index's (the export re-prunes layer-0 rows over the 2M cap, which the
     live pack cuts unpruned); a second export of the loaded index equal
     byte for byte; the golden stream ``tests/fixtures/refsnap_golden.bin``
-    loads to ``refsnap_golden_expected.npz``'s ids and distances.
+    loads to ``refsnap_golden_expected.npz``'s ids and distances.  K3
+    checked over the two exports and the import: launched where layer-0
+    rows lie over the 2M cap, and not where none do.
 14. Custom metric: L1 registered as a torch callable, the first 200,000
     rows built under it (every wave after the seed on the beam path),
     packed ``knn_query(k=10)`` of 1,000 rows at ef 16 and ef 32 against an
     exact L1 top-10 on the card (``torch.cdist``), recall@10 >= 0.90 at ef
-    32; distances equal to the callable's; ``exact=True`` must raise.
-    These phases launch no kernel: a registered metric has no exact scan
-    and no block path, and statistics and snapshots are reductions and
-    host I/O.
+    32; distances equal to the callable's; ``exact=True`` must raise; K3
+    checked in the build.  Apart from K3, these phases launch no kernel: a
+    registered metric has no exact scan and no block path, and statistics
+    and snapshots are reductions and host I/O.
 15. The sharded front ends, run after every earlier phase, on the same
     corpus with ``devices=["cuda:0", "cuda:0"]`` (two shards on the one
     card).  ``ShardedIndex`` build of the 1M rows (M=16, efConstruction=100,
     max_wave_size=512, so 256-row waves a shard): inserts/s, the waves,
     each shard's phase split and K1's launches in the build (0 expected:
-    a shard's scan prefix, 507,904 rows, stays under BUILD_SCAN2_MIN).
+    a shard's scan prefix, 507,904 rows, stays under BUILD_SCAN2_MIN); K3
+    checked.
     Packed ``knn_query(k=10)`` on 10,000 rows: q/s, recall@10 >= 0.90, the
     per-shard packs built; unpacked at ef 64, recall@10 >= 0.87;
     ``exact=True``: recall@10 >= 0.99, K1 launched on that path, and K1
@@ -150,7 +166,8 @@
     into a removed slot on either shard, no removed gid returned, post/pre
     recall@10 of 1,000 surviving rows >= 0.98; ``update`` of 5,000 rows
     (gids and count unchanged, the stored vectors the new ones, recall@1
-    by the new vectors >= 0.85 at ef 64).  ``get_info`` (layer 0 holds
+    by the new vectors >= 0.85 at ef 64); K3 checked in both.  ``get_info``
+    (layer 0 holds
     every live row) and component counts (two at layer 0, one a shard),
     then a ``.npz`` round trip onto the same devices whose 1,000 answers
     are identical.
@@ -165,6 +182,7 @@
     beside its bound; then 10,000 rows added (they
     find themselves) and 10,000 removed (they never come back).
 
+The ``kernels`` line reports K1, K2 and K3 (K3's launches by phase).
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 non-zero before it.  Without a CUDA device the script exits non-zero and
 prints no result.
@@ -201,6 +219,7 @@ BEAM_THRESHOLD = 20_000     # its exact_build_threshold (default 2^24)
 NQ_SMALL = 1_000            # queries of the layer-1, range and k=300 phases
 N_SHARD_REMOVE = 50_000     # gids the sharded removal takes
 N_SHARD_UPDATE = 5_000      # rows the sharded update moves
+K3_REPS = 200               # launches a timing of K3 averages over
 # published peaks of one H100 SXM: bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -246,6 +265,122 @@ def bound(flops: float, peak: float, nbytes: float) -> dict:
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def k3_measure(pd, sd, svalid, max_edges: int) -> dict:
+    """K3 (``ops/accept_scan``) on one prune's inputs against its plain
+    twin (``core/heuristic._accept_capped``); fails unless the two are
+    equal.  ``ms`` is K3's device time a launch, from a profiler trace of
+    K3_REPS launches (so the host's pace of the launches is left out), and
+    ``event_ms`` CUDA events around the same number of launches; the twin
+    is timed by CUDA events.  K3's bound is by bytes: sd, svalid and the
+    output once, and each pd entry the walk compares (for a column decided
+    before the cap, one per earlier accept)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hnswbench.trace import _events
+    from hnswindex_torch.core import heuristic as H
+    from hnswindex_torch.ops.accept_scan import accept_scan
+
+    def run():
+        return accept_scan(pd, sd, svalid, max_edges)
+
+    B, N = sd.shape
+    got = run()
+    want = H._accept_capped(pd, sd, svalid, max_edges)
+    name = f"B={B} N={N} max_edges={max_edges}"
+    if not torch.equal(got, want):
+        fail(f"K3 differs from its twin at {name}")
+    err = float((got.int() - want.int()).abs().max()) if B * N else 0.0
+    event_ms = time_ms(run, K3_REPS)
+    plain_ms = time_ms(lambda: H._accept_capped(pd, sd, svalid, max_edges),
+                       3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(K3_REPS):
+            run()
+        torch.cuda.synchronize()
+    # the trace may miss a few of the launches: the mean is of those seen
+    spans = [e - s for s, e, n in _events(prof, True)[0]
+             if "accept_scan_kernel" in n]
+    if not spans:
+        fail(f"K3 at {name}: the trace holds no accept_scan_kernel")
+    ms = sum(spans) / len(spans) / 1e6
+    keep_all = svalid.sum(dim=1) < max_edges
+    before = torch.cumsum(got, dim=1) - got.long()      # accepts before c
+    walked = svalid & (before < max_edges) & ~keep_all[:, None]
+    nbytes = 4 * int((before * walked).sum()) + B * N * (4 + 1 + 1)
+    res = dict(B=B, N=N, max_edges=max_edges, max_abs_err=err, ms=ms,
+               traced_launches=len(spans), event_ms=event_ms,
+               plain_ms=plain_ms, bytes=nbytes, library_ms=None,
+               **bound(0.0, PEAK_F32, nbytes))
+    res["bound_share"] = res["bound_ms"] / ms
+    print(f"K3 {name}: identical to the twin; kernel {ms:.4f} ms a launch "
+          f"(device time of the {len(spans)} of {K3_REPS} launches a trace "
+          f"holds; CUDA events "
+          f"{event_ms:.4f} ms), twin {plain_ms:.3f} ms, bound "
+          f"{res['bound_ms']:.5f} ms ({nbytes:,} B), "
+          f"{res['bound_share']:.3f} of the bound", flush=True)
+    return res
+
+
+class K3Probe:
+    """Stands in for K3 where ``core/heuristic.prune`` calls it, for the
+    whole run.  ``start`` sets K3's launch counter to 0; meanwhile the probe
+    keeps the inputs of the first prune at each (width, max_edges) and of
+    the last of its largest (most rows); ``finish`` reads the counter, then
+    holds every kept input against the plain twin and, with ``timed``,
+    measures K3 at each width's largest inputs (``k3_measure``)."""
+
+    def __init__(self):
+        self.seen: dict = {}
+
+    def install(self) -> None:
+        from hnswindex_torch.core import heuristic as H
+        self.real = H.accept_scan
+        H.accept_scan = self
+
+    def __call__(self, pd, sd, svalid, max_edges):
+        key = (sd.shape[1], int(max_edges))
+        kept = self.seen.get(key)
+        if kept is None:
+            self.seen[key] = [(pd, sd, svalid)]
+        elif sd.shape[0] >= kept[-1][1].shape[0]:
+            self.seen[key] = [kept[0], (pd, sd, svalid)]
+        return self.real(pd, sd, svalid, max_edges)
+
+    def start(self) -> None:
+        self.seen = {}
+        self.real.calls = 0
+
+    def finish(self, what: str, timed: bool = False) -> dict:
+        import torch
+        from hnswindex_torch.core import heuristic as H
+
+        torch.cuda.synchronize()
+        launches, seen = self.real.calls, self.seen
+        self.seen = {}
+        out = dict(launches=launches, widths=[], checked=0, timed=[])
+        for (n, me), kept in sorted(seen.items()):
+            out["widths"].append([n, me])
+            for pd, sd, svalid in kept:
+                if not torch.equal(self.real(pd, sd, svalid, me),
+                                   H._accept_capped(pd, sd, svalid, me)):
+                    fail(f"K3 differs from its twin in {what} at "
+                         f"B={sd.shape[0]} N={n} max_edges={me}")
+                out["checked"] += 1
+            if timed:
+                out["timed"].append(k3_measure(*kept[-1], me))
+        del seen
+        torch.cuda.empty_cache()
+        print(f"K3 in {what}: {launches} launches; {out['checked']} "
+              f"prunes' inputs at (width, max_edges) {out['widths']} "
+              f"identical to the twin", flush=True)
+        return out
+
+
+#: the probe every prune of the run goes through (installed by ``main``)
+K3 = K3Probe()
 
 
 def kernel_phase(C: int, B: int = WAVE, d: int = D,
@@ -962,6 +1097,7 @@ def churn_phases(index, vecs) -> dict:
     pre = live_recall(index, vecs[probe])
 
     before = impl.timer.seconds()
+    K3.start()
     (_, s) = timed_query(lambda: index.remove(drop))
     after = impl.timer.seconds()
     split = {k: after.get(k, 0.0) - before.get(k, 0.0)
@@ -970,6 +1106,9 @@ def churn_phases(index, vecs) -> dict:
     print(f"removal: {N_REMOVE} ids (the entry point {ep} among them) in "
           f"{s:.2f} s = {N_REMOVE / s:.1f} removals/s; phases "
           + " ".join(f"{k}={v:.2f}s" for k, v in split.items()), flush=True)
+    k3 = K3.finish("the removal", timed=True)
+    if k3["launches"] <= 0:
+        fail("removal: the repair never launched K3")
     if index.count != n - N_REMOVE or int(st.count) != n - N_REMOVE:
         fail(f"removal: count {index.count} != {n - N_REMOVE}")
     new_ep = int(st.ep)
@@ -990,15 +1129,17 @@ def churn_phases(index, vecs) -> dict:
         fail(f"removal: post/pre recall ratio {ratio} < 0.98")
     out = dict(removed=N_REMOVE, seconds=s, removals_per_s=N_REMOVE / s,
                phases_s=split, recall_pre=pre, recall_post=post,
-               ratio=ratio, entry_point=new_ep)
+               ratio=ratio, entry_point=new_ep, k3=k3)
 
     # re-add: fresh rows take the freed slots, last freed first
     fresh = (vecs[rng.choice(n, N_CHURN, replace=False)]
              + 0.01 * rng.standard_normal((N_CHURN, D)).astype(np.float32))
     expect = np.asarray(impl._free[::-1][:N_CHURN], np.int32)
     FS.lane_min_scan.launches = 0
+    K3.start()
     new_ids, s = timed_query(lambda: index.add(fresh))
     launches = FS.lane_min_scan.launches
+    k3 = K3.finish("the re-add")
     if not np.array_equal(new_ids, expect):
         fail("re-add: the ids are not the freed slots in LIFO order")
     found = index.knn_query(fresh, 1)[0][:, 0]
@@ -1006,10 +1147,10 @@ def churn_phases(index, vecs) -> dict:
     print(f"re-add: {N_CHURN} rows into freed slots in {s:.2f} s = "
           f"{N_CHURN / s:.1f} inserts/s; recall@1 on themselves "
           f"{self_rec:.4f}; lane_min_scan launches {launches}", flush=True)
-    if self_rec < 0.90 or launches <= 0:
-        fail(f"re-add: recall@1 {self_rec} or no lane-min launch")
+    if self_rec < 0.90 or launches <= 0 or k3["launches"] <= 0:
+        fail(f"re-add: recall@1 {self_rec} or no lane-min or K3 launch")
     out["readd"] = dict(inserts_per_s=N_CHURN / s, recall_at_1=self_rec,
-                        launches=launches)
+                        launches=launches, k3=k3)
 
     # update: surviving rows move by the generator's own noise
     live = np.flatnonzero(st.active.cpu().numpy())
@@ -1019,8 +1160,10 @@ def churn_phases(index, vecs) -> dict:
     ids_before = index.ids()
     inner = resolve_quality(impl.params.remove_quality, N_CHURN, index.count)
     FS.lane_min_scan.launches = 0
+    K3.start()
     _, s = timed_query(lambda: impl.update(upd, moved))
     launches = FS.lane_min_scan.launches
+    k3 = K3.finish("the update")
     if not np.array_equal(index.ids(), ids_before) or \
             index.count != n - N_REMOVE + N_CHURN:
         fail("update: the ids or the count changed")
@@ -1045,11 +1188,11 @@ def churn_phases(index, vecs) -> dict:
           f"(inner removal \"{inner}\"); recall@1 by the new vectors "
           + ", ".join(f"{v:.4f} at min_nn={k}" for k, v in rec1.items())
           + f"; lane_min_scan launches {launches}", flush=True)
-    if rec1[64] < 0.85 or launches <= 0:
+    if rec1[64] < 0.85 or launches <= 0 or k3["launches"] <= 0:
         fail(f"update: recall@1 {rec1[64]} at min_nn=64 or no lane-min "
-             "launch")
+             "or K3 launch")
     out["update"] = dict(rows_per_s=N_CHURN / s, recall_at_1=rec1,
-                         launches=launches, inner_quality=inner)
+                         launches=launches, inner_quality=inner, k3=k3)
 
     rec = live_recall(index, vecs[probe])
     print(f"after the churn: packed recall@10 of {NQ_SMALL} live rows "
@@ -1130,6 +1273,7 @@ def beam_build(vecs: np.ndarray) -> dict:
     index = hnswindex_torch.Index(D, "sq_euclid", device="cuda")
     index.set_collection_size(N_BEAM)
     index._params.exact_build_threshold = BEAM_THRESHOLD
+    K3.start()
     _, build_s = timed_query(lambda: index.add(sub))
     impl = index._impl
     waves = dict(impl.wave_counts)
@@ -1140,6 +1284,9 @@ def beam_build(vecs: np.ndarray) -> dict:
     print(f"beam-path build: {N_BEAM} rows in {build_s:.2f} s = "
           f"{N_BEAM / build_s:.1f} inserts/s; waves exact {waves['exact']} "
           f"beam {waves['beam']}; phases {split}", flush=True)
+    k3 = K3.finish("the beam-path build")
+    if k3["launches"] <= 0:
+        fail("beam-path build: no K3 launch")
     xd = torch.as_tensor(sub, device="cuda")
     _, gt = exact_topk(xd, sub[:1000], 10)
     (qi, qd), s = timed_query(lambda: index.knn_query(sub[:NQ], 10))
@@ -1157,7 +1304,7 @@ def beam_build(vecs: np.ndarray) -> dict:
     impl._pack = None                       # kept for the last phases
     return dict(build_s=build_s, inserts_per_s=N_BEAM / build_s,
                 waves=waves, phases_s=phases, recall_at_10=recall,
-                unpacked_recall_at_10=urecall), index, gt
+                unpacked_recall_at_10=urecall, k3=k3), index, gt
 
 
 def median_rule(v: np.ndarray) -> int:
@@ -1286,6 +1433,9 @@ def refsnap_phase(index, gt: np.ndarray) -> dict:
     p = impl.params
     p.pack_queries, p.min_nn = "auto", hnswindex_torch.HNSWParameters().min_nn
     live = recall_at_10(impl.knn_query(sub_q, 10)[0], gt)
+    over = int((impl._state.deg0[:impl._length]
+                > 2 * impl.params.max_edges).sum())
+    K3.start()
     with tempfile.TemporaryDirectory() as d:
         p1, p2 = os.path.join(d, "a.bin"), os.path.join(d, "b.bin")
         _, out_s = timed_query(lambda: impl.to_reference_snapshot(p1))
@@ -1296,6 +1446,11 @@ def refsnap_phase(index, gt: np.ndarray) -> dict:
         with open(p1, "rb") as f1, open(p2, "rb") as f2:
             same = f1.read() == f2.read()
         nbytes = os.path.getsize(p1)
+    k3 = K3.finish(f"the reference export ({over} layer-0 rows over the "
+                   "2M cap)")
+    if (k3["launches"] > 0) != (over > 0):
+        fail(f"reference snapshot: {k3['launches']} K3 launches for {over} "
+             "rows over the cap")
     rec = recall_at_10(loaded.knn_query(sub_q, 10)[0], gt)
     print(f"reference snapshot: {impl.count} rows, {nbytes} bytes; export "
           f"{out_s:.2f} s, import {in_s:.2f} s; recall@10 live {live:.4f} "
@@ -1318,7 +1473,7 @@ def refsnap_phase(index, gt: np.ndarray) -> dict:
     print("reference snapshot: the golden stream loads as its expected "
           "ids and distances", flush=True)
     return dict(export_s=out_s, import_s=in_s, bytes=nbytes,
-                recall_live=live, recall_loaded=rec)
+                recall_live=live, recall_loaded=rec, over_cap=over, k3=k3)
 
 
 def custom_metric_phase(vecs: np.ndarray, device: str = "cuda") -> dict:
@@ -1334,6 +1489,7 @@ def custom_metric_phase(vecs: np.ndarray, device: str = "cuda") -> dict:
     sub = vecs[:N_CUSTOM]
     index = hnswindex_torch.Index(D, "l1", device=device)
     index.set_collection_size(N_CUSTOM)
+    K3.start()
     _, build_s = timed_query(lambda: index.add(sub))
     impl = index._impl
     waves = dict(impl.wave_counts)
@@ -1344,6 +1500,9 @@ def custom_metric_phase(vecs: np.ndarray, device: str = "cuda") -> dict:
     print(f"custom metric (L1): {N_CUSTOM} rows in {build_s:.2f} s = "
           f"{N_CUSTOM / build_s:.1f} inserts/s; waves {waves}; phases "
           f"{split}", flush=True)
+    k3 = K3.finish("the L1 build")
+    if k3["launches"] <= 0:
+        fail("custom metric: no K3 launch")
     xd = torch.as_tensor(sub, device=device)
     q = sub[:NQ_SMALL]
     gt = torch.cat([torch.topk(torch.cdist(
@@ -1351,7 +1510,7 @@ def custom_metric_phase(vecs: np.ndarray, device: str = "cuda") -> dict:
         dim=1, largest=False).indices.cpu()
         for i in range(0, NQ_SMALL, 250)]).numpy()
     out = dict(build_s=build_s, inserts_per_s=N_CUSTOM / build_s,
-               waves=waves, phases_s=phases)
+               waves=waves, phases_s=phases, k3=k3)
     for ef in (16, 32):
         impl.params.min_nn = ef
         (qi, qd), s = timed_query(lambda: index.knn_query(q, 10))
@@ -1399,8 +1558,12 @@ def sharded_build(vecs: np.ndarray, devices) -> tuple:
     six = ShardedIndex(D, "sq_euclid", HNSWParameters(collection_size=n),
                        devices=devices)
     FS.lane_min_scan.launches = 0
+    K3.start()
     gids, s = timed_query(lambda: six.add(vecs))
     launches = FS.lane_min_scan.launches
+    k3 = K3.finish("the sharded build")
+    if k3["launches"] <= 0:
+        fail("sharded build: no K3 launch")
     if six.count != n or not np.array_equal(gids, np.arange(n)):
         fail("sharded build: the gids are not the corpus rows")
     phases = [t.seconds() for t in six.timers]
@@ -1417,7 +1580,7 @@ def sharded_build(vecs: np.ndarray, devices) -> tuple:
     torch.cuda.synchronize()
     return six, dict(seconds=s, inserts_per_s=n / s,
                      waves=dict(six.wave_counts),
-                     phases_s=phases, launches=launches,
+                     phases_s=phases, launches=launches, k3=k3,
                      shard_capacity=six.shard_capacity)
 
 
@@ -1517,7 +1680,9 @@ def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
 
     pre = live_rec()
     before = [t.seconds() for t in six.timers]
+    K3.start()
     _, s = timed_query(lambda: six.remove(drop))
+    k3 = K3.finish("the sharded removal")
     split = {k: sum(t.seconds().get(k, 0.0) - b.get(k, 0.0)
                     for t, b in zip(six.timers, before))
              for k in ("mark", "affected", "candidates", "repair")}
@@ -1537,17 +1702,20 @@ def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
           + " ".join(f"{k}={v:.2f}s" for k, v in split.items())
           + f"); recall@10 of {NQ_SMALL} surviving rows {pre:.4f} -> "
           f"{post:.4f} (ratio {ratio:.4f})", flush=True)
-    if ratio < 0.98:
-        fail(f"sharded removal: post/pre recall ratio {ratio} < 0.98")
+    if ratio < 0.98 or k3["launches"] <= 0:
+        fail(f"sharded removal: post/pre recall ratio {ratio} < 0.98 or "
+             "no K3 launch")
     out = dict(removals_per_s=N_SHARD_REMOVE / s, seconds=s, phases_s=split,
-               recall_pre=pre, recall_post=post, ratio=ratio)
+               recall_pre=pre, recall_post=post, ratio=ratio, k3=k3)
 
     live = np.flatnonzero(~dropped)
     upd = np.sort(rng.choice(live, N_SHARD_UPDATE, replace=False))
     moved = (vecs[upd] + 0.03 * rng.standard_normal(
         (N_SHARD_UPDATE, D)).astype(np.float32))
     ids_before = six.ids()
+    K3.start()
     _, s = timed_query(lambda: six.update(upd, moved))
+    k3 = K3.finish("the sharded update")
     if not np.array_equal(six.ids(), ids_before) or \
             six.count != n - N_SHARD_REMOVE:
         fail("sharded update: the gids or the count changed")
@@ -1563,9 +1731,11 @@ def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
     print(f"sharded update: {N_SHARD_UPDATE} rows in {s:.2f} s = "
           f"{N_SHARD_UPDATE / s:.1f} rows/s; recall@1 by the new vectors "
           f"at ef 64 {rec1:.4f}", flush=True)
-    if rec1 < 0.85:
-        fail(f"sharded update: recall@1 {rec1} < 0.85 at ef 64")
-    out["update"] = dict(rows_per_s=N_SHARD_UPDATE / s, recall_at_1=rec1)
+    if rec1 < 0.85 or k3["launches"] <= 0:
+        fail(f"sharded update: recall@1 {rec1} < 0.85 at ef 64 or no K3 "
+             "launch")
+    out["update"] = dict(rows_per_s=N_SHARD_UPDATE / s, recall_at_1=rec1,
+                         k3=k3)
     return out
 
 
@@ -1757,11 +1927,13 @@ def main() -> int:
           f"device {kind}", flush=True)
 
     t0 = time.perf_counter()
-    _cuda.prebuild(["fused_scan", "block_scores"])
-    print(f"kernel build: fused_scan.cu and block_scores.cu together "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_cuda.build_seconds['fused_scan']:.2f} s and "
-          f"{_cuda.build_seconds['block_scores']:.2f} s)", flush=True)
+    _cuda.prebuild(["fused_scan", "block_scores", "accept_scan"])
+    K3.install()
+    print(f"kernel build: fused_scan.cu, block_scores.cu and accept_scan.cu "
+          f"together {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{_cuda.build_seconds['fused_scan']:.2f} s, "
+          f"{_cuda.build_seconds['block_scores']:.2f} s and "
+          f"{_cuda.build_seconds['accept_scan']:.2f} s)", flush=True)
 
     k1 = kernel_phases()
     k_full = k1["full"]
@@ -1776,6 +1948,7 @@ def main() -> int:
     index = hnswindex_torch.Index(D, "sq_euclid", device="cuda")
     index.set_collection_size(n)
     FS.lane_min_scan.launches = 0
+    K3.start()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ids = index.add(vecs)
@@ -1788,6 +1961,10 @@ def main() -> int:
                      for k in ("scan", "prune", "reverse", "upper"))
     print(f"build: {n} rows in {build_s:.2f} s = {n / build_s:.1f} "
           f"inserts/s; phases {split}", flush=True)
+    k3_build = K3.finish("the 1M build", timed=True)
+    k3_main = [m for m in k3_build["timed"] if m["N"] == 100]
+    if k3_build["launches"] <= 0 or not k3_main:
+        fail("the build never launched K3 at efConstruction's width")
     stats_built = stats_phase(index, "after the build")
 
     nq = NQ
@@ -1860,7 +2037,8 @@ def main() -> int:
         "snapshot": snap, "reference_snapshot": refsnap,
         "custom_metric": custom, "sharded": sharded,
         "beam_build": beam, "block_path": blockp, "fallback": fallb,
-        "block_scores_phases": k2}}), flush=True)
+        "block_scores_phases": k2, "accept_scan_build": k3_build}}),
+        flush=True)
     print(card, flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1885,7 +2063,22 @@ def main() -> int:
          "launches_fallback": fallb["launches"],
          "launches_hnsw_router": router["launches"],
          "launches_sharded_block": sharded["block"]["launches"],
-         **{k: k2m[k] for k in keys}}]}), flush=True)
+         **{k: k2m[k] for k in keys}},
+        {"name": "accept_scan", "route": "cuda",
+         "source": "hnswindex_torch/csrc/accept_scan.cu",
+         "replaces": "hnswindex_tpu/core/heuristic.py:37",
+         "launches": k3_build["launches"],
+         "launches_beam_build": beam["k3"]["launches"],
+         "launches_remove": churn["k3"]["launches"],
+         "launches_readd": churn["readd"]["k3"]["launches"],
+         "launches_update": churn["update"]["k3"]["launches"],
+         "launches_reference_export": refsnap["k3"]["launches"],
+         "launches_custom_metric": custom["k3"]["launches"],
+         "launches_sharded_build": sharded["build"]["k3"]["launches"],
+         "launches_sharded_remove": sharded["churn"]["k3"]["launches"],
+         "launches_sharded_update":
+             sharded["churn"]["update"]["k3"]["launches"],
+         **{k: k3_main[-1][k] for k in keys}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

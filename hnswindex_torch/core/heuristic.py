@@ -9,11 +9,13 @@ Counterpart of ``hnswindex_tpu/core/heuristic.py``: the reference's
   accepts (Heuristic.cs:22-41).
 
 The O(N^2) candidate distances are one batched product; the sequential
-accept is a scan over the sorted candidate columns.  The reference permutes
-its conflict tensor with one-hot bf16 products because TPU gathers are
-slow; here the candidates are gathered in sorted order before the product,
-which gives the same products in sorted positions.  A registered metric
-evaluates its callable on the sorted candidates, a few columns at a time.
+accept is one launch of kernel K3 (``ops/accept_scan``) on the card, and on
+the CPU its plain twin ``_accept_capped``, a scan over the sorted candidate
+columns.  The reference permutes its conflict tensor with one-hot bf16
+products because TPU gathers are slow; here the candidates are gathered in
+sorted order before the product, which gives the same products in sorted
+positions.  A registered metric evaluates its callable on the sorted
+candidates, a few columns at a time.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import distance as dst
+from ..ops.accept_scan import accept_scan
 
 
 def _accept_scan(conflict: torch.Tensor) -> torch.Tensor:
@@ -42,8 +45,26 @@ def _accept_cols(by_col: torch.Tensor) -> torch.Tensor:
 
 
 #: column steps ``_accept_cols`` has taken, summed over its calls in this
-#: process: each step is a handful of small launches
+#: process: each step is a handful of small launches (the CPU path's; a
+#: prune on the card takes kernel K3 and no step)
 _accept_cols.steps = 0
+
+
+def _accept_capped(pd: torch.Tensor, sd: torch.Tensor, svalid: torch.Tensor,
+                   max_edges: int) -> torch.Tensor:
+    """Accepted sorted columns ``(B, N)`` bool, at most ``max_edges`` a row,
+    from the pairwise distances ``pd[b, c, s] = d(s, c)`` and the distances
+    ``sd`` to the target: the plain twin of kernel K3 (``ops/accept_scan``),
+    which the CPU path runs."""
+    keep_all = svalid.sum(dim=1) < max_edges
+    # by_col[b, c, s]: earlier candidate s conflicts with c, i.e.
+    # d(s, c) < d(c, target).  _accept_cols reads only s < c, and an
+    # invalid column c is dropped by the mask below, so only invalid
+    # earlier candidates s need masking
+    by_col = (pd < sd[:, :, None]) & svalid[:, None, :]
+    accepted = _accept_cols(by_col) & svalid
+    accepted = torch.where(keep_all[:, None], svalid, accepted)
+    return accepted & (torch.cumsum(accepted, dim=1) <= max_edges)
 
 
 #: Bytes of the (B, cols, N, D) broadcast a registered metric's pairwise
@@ -94,13 +115,6 @@ def prune(metric: str,
     svalid = torch.gather(valid, 1, order)
     sd = torch.gather(d, 1, order)
 
-    n_valid = svalid.sum(dim=1)
-    keep_all = n_valid < max_edges
-
-    # by_col[b, c, s]: earlier candidate s conflicts with c, i.e.
-    # d(s, c) < d(c, target).  _accept_cols reads only s < c, and an
-    # invalid column c is dropped by the mask below, so only invalid
-    # earlier candidates s need masking
     if dst.is_custom(metric):
         cv = torch.gather(cand_vecs, 1,
                           order[:, :, None].expand(B, N, cand_vecs.shape[2]))
@@ -114,11 +128,10 @@ def prune(metric: str,
         sn = torch.gather(cand_norms, 1, order)
         dots = torch.bmm(cv, cv.transpose(1, 2))
         pd = dst.from_dot(metric, dots, sn[:, :, None], sn[:, None, :])
-    by_col = (pd < sd[:, :, None]) & svalid[:, None, :]
-
-    accepted = _accept_cols(by_col) & svalid
-    accepted = torch.where(keep_all[:, None], svalid, accepted)
-    accepted = accepted & (torch.cumsum(accepted, dim=1) <= max_edges)
+    if pd.is_cuda:
+        accepted = accept_scan(pd, sd, svalid, max_edges)
+    else:
+        accepted = _accept_capped(pd, sd, svalid, max_edges)
     count = accepted.sum(dim=1)
 
     pos = torch.cumsum(accepted, dim=1) - 1

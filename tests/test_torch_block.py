@@ -37,19 +37,13 @@ from hnswindex_torch import block as TB
 from hnswindex_torch.convert import _to_tensor
 from hnswindex_tpu import block as JB
 from hnswindex_tpu.ops import pallas_block as JPB
+from torch_cases import clustered
 
 torch.set_num_threads(1)
 
 DIM = 32
 N = 3000
 K = 10
-
-
-def clustered(n, dim, n_centers, rng, spread=0.05):
-    centers = rng.random((n_centers, dim)).astype(np.float32)
-    who = rng.integers(0, n_centers, n)
-    return (centers[who]
-            + spread * rng.standard_normal((n, dim)).astype(np.float32))
 
 
 def overlap(ids, gt):

@@ -11,6 +11,7 @@ from hnswindex_torch.core import heuristic as TH
 from hnswindex_torch.ops import distance as tdst
 from hnswindex_tpu.core import heuristic as JH
 from hnswindex_tpu.ops import distance as jdst
+from torch_cases import accept_inputs
 
 torch.set_num_threads(1)
 
@@ -69,3 +70,51 @@ def test_accept_scan_is_sequential_rule():
             acc.append(not any(conf[b, s, c] and acc[s] for s in range(c)))
         assert got[b].tolist() == acc
     assert tdst.VALID_METRICS == jdst.VALID_METRICS
+
+
+def _heuristic_cs_row(pd, sd, valid, max_edges):
+    """Heuristic.cs:11-41 for one row, transcribed: fewer valid candidates
+    than ``max_edges`` keep all; else walk the sorted candidates and accept
+    c iff no accepted s has d(s, c) = pd[c, s] < d(c, target) = sd[c],
+    stopping at ``max_edges`` accepts."""
+    cols = [c for c in range(len(sd)) if valid[c]]
+    if len(cols) < max_edges:
+        return cols
+    acc = []
+    for c in cols:
+        if len(acc) == max_edges:
+            break
+        if not any(pd[c, s] < sd[c] for s in acc):
+            acc.append(c)
+    return acc
+
+
+@pytest.mark.parametrize("max_edges", [4, 16])
+@pytest.mark.parametrize("N", [1, 12, 40, 100])
+def test_accept_capped_is_heuristic_cs(N, max_edges):
+    """The accept's plain twin (kernel K3's contract) against a per-row
+    transcription of the reference's loop."""
+    pd, sd, valid = accept_inputs(100 + N + max_edges, 24, N)
+    got = TH._accept_capped(torch.from_numpy(pd), torch.from_numpy(sd),
+                            torch.from_numpy(valid), max_edges).numpy()
+    for b in range(pd.shape[0]):
+        want = _heuristic_cs_row(pd[b], sd[b], valid[b], max_edges)
+        assert np.flatnonzero(got[b]).tolist() == want, b
+    assert not got[0].any()
+    if N > 3:
+        assert got[1].tolist() == valid[1].tolist()
+
+
+def test_prune_on_cpu_never_launches_the_kernel():
+    """On the CPU, prune takes the plain twin: K3's launch count stays
+    put while the column loop counts its steps."""
+    from hnswindex_torch.ops import accept_scan as TA
+    cand, cd, cvecs, cn, _ = _inputs("sq_euclid")
+    calls, steps = TA.accept_scan.calls, TH._accept_cols.steps
+    TH.prune("sq_euclid", torch.from_numpy(cand), torch.from_numpy(cd),
+             torch.from_numpy(cvecs), torch.from_numpy(cn), 8)
+    assert TA.accept_scan.calls == calls
+    assert TH._accept_cols.steps == steps + cand.shape[1]
+    with pytest.raises(ValueError, match="no kernel"):
+        TA.accept_scan(torch.zeros((1, 2, 2)), torch.zeros((1, 2)),
+                       torch.ones((1, 2), dtype=torch.bool), 1)

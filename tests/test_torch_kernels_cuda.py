@@ -29,7 +29,13 @@ build's layer-0 edges at >= 0.99 on each shard; ShardedBlockIndex
 launches K2 on each shard, each shard's panel selects the plain
 _score_blocks top-10 up to float64 near-ties, and full probing is exact.
 Under the profiler no device event bears a program range's name, and the
-phase timer holds few CUDA events over 10,000 regions."""
+phase timer holds few CUDA events over 10,000 regions.
+The accept scan (K3) equals its plain twin bit for bit, ties, NaN and
+invalid columns included; a 20,000-row build and a removal repair on the
+card give the same tables with K3 as with the twin, and each prune on the
+card is one launch and no column step."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -37,10 +43,13 @@ import torch
 
 import hnswindex_torch as T
 from hnswindex_torch.core import construct as TC
+from hnswindex_torch.core import heuristic as TH
+from hnswindex_torch.ops import accept_scan as TA
 from hnswindex_torch.ops import block_scores as TBS
 from hnswindex_torch.ops import bruteforce as TB
 from hnswindex_torch.ops import distance as tdst
 from hnswindex_torch.ops import fused_scan as TF
+from torch_cases import accept_inputs, clustered
 
 pytestmark = pytest.mark.cuda
 
@@ -263,6 +272,125 @@ def test_build_on_card_runs_the_kernel(dev, monkeypatch):
         assert len(set(row.tolist())) == row.size
     ids, _ = idx.knn_query(vecs, 1)
     assert (ids[:, 0] == np.arange(n)).mean() > 0.85
+
+
+@functools.lru_cache(maxsize=1)
+def _accept_host(B, N):
+    # kept for the next case: the cases of one (B, N) run in a row
+    return accept_inputs(29, B, N)
+
+
+def _accept_case(B, N, dev):
+    """``torch_cases.accept_inputs`` on the card."""
+    return tuple(torch.from_numpy(a).to(dev) for a in _accept_host(B, N))
+
+
+@pytest.mark.parametrize("max_edges", [16, 32])
+@pytest.mark.parametrize("N", [1, 40, 100, 124, 136, 424])
+@pytest.mark.parametrize("B", [1, 512, 8192])
+def test_accept_scan_matches_twin_on_card(dev, B, N, max_edges):
+    pd, sd, valid = _accept_case(B, N, dev)
+    n0 = TA.accept_scan.calls
+    got = TA.accept_scan(pd, sd, valid, max_edges)
+    torch.cuda.synchronize()
+    assert TA.accept_scan.calls == n0 + 1
+    want = TH._accept_capped(pd, sd, valid, max_edges)
+    assert torch.equal(got, want)
+    assert (got.sum(dim=1) <= max_edges).all()
+    if B >= 3:
+        assert not got[0].any()
+        if N > 3:
+            assert torch.equal(got[1], valid[1])
+        assert int(got[2].sum()) == min(max_edges, int(valid[2].sum()))
+
+
+def test_accept_scan_checks_its_inputs_on_card(dev):
+    pd, sd, valid = _accept_case(4, 10, dev)
+    with pytest.raises(TypeError):
+        TA.accept_scan(pd.double(), sd, valid, 4)
+    with pytest.raises(TypeError):
+        TA.accept_scan(pd, sd, valid.int(), 4)
+    with pytest.raises(ValueError):
+        TA.accept_scan(pd[:, :, :9], sd, valid, 4)
+    with pytest.raises(ValueError):
+        TA.accept_scan(pd.transpose(1, 2), sd, valid, 4)
+    assert torch.equal(TA.accept_scan(pd, sd, valid, 0),
+                       torch.zeros_like(valid))
+
+
+def _twin(pd, sd, svalid, max_edges):
+    return TH._accept_capped(pd, sd, svalid, max_edges)
+
+
+def _tables(ix):
+    st = ix._state
+    return [t.clone() for t in (st.nbr0, st.deg0, st.nbru, st.degu, st.ep)]
+
+
+@pytest.mark.parametrize("metric", ["sq_euclid", "cosine"])
+def test_build_with_accept_kernel_equals_twin_on_card(dev, metric,
+                                                      monkeypatch):
+    """A seeded 20,000-row build on the card through K3, and the same build
+    with the plain twin as the accept: identical tables and entry point."""
+    n, dim = 20000, 64
+    vecs = clustered(n, dim, n // 500, np.random.default_rng(31), 0.03)
+    built = []
+    for accept in ("kernel", "twin"):
+        if accept == "twin":
+            monkeypatch.setattr(TH, "accept_scan", _twin)
+        idx = T.HNSWIndex(dim, metric, T.HNSWParameters(
+            collection_size=n), device=dev)
+        calls = TA.accept_scan.calls
+        idx.add(vecs)
+        assert (TA.accept_scan.calls > calls) == (accept == "kernel")
+        built.append(_tables(idx))
+    for name, a, b in zip(("nbr0", "deg0", "nbru", "degu", "ep"), *built):
+        assert torch.equal(a, b), name
+
+
+def test_removal_repair_with_accept_kernel_equals_twin_on_card(dev,
+                                                               monkeypatch):
+    """One 20,000-row graph, copied twice on the card, through the same
+    removal of 2,000 ids (the repair prunes with ``fill_to`` at its widths):
+    K3 and the twin leave identical tables."""
+    n, dim = 20000, 64
+    vecs = clustered(n, dim, n // 500, np.random.default_rng(37), 0.03)
+    base = T.HNSWIndex(dim, "sq_euclid", T.HNSWParameters(
+        collection_size=n), device=dev)
+    base.add(vecs)
+    rem = np.random.default_rng(37).choice(n, 2000, replace=False)
+    out = []
+    for accept in ("kernel", "twin"):
+        if accept == "twin":
+            monkeypatch.setattr(TH, "accept_scan", _twin)
+        ix = _moved_to(base, dev)
+        calls = TA.accept_scan.calls
+        ix.remove(rem)
+        assert (TA.accept_scan.calls > calls) == (accept == "kernel")
+        out.append(_tables(ix))
+    for name, a, b in zip(("nbr0", "deg0", "nbru", "degu", "ep"), *out):
+        assert torch.equal(a, b), name
+
+
+def test_prune_on_card_is_one_launch_and_no_step(dev, monkeypatch):
+    """Every prune of a build on the card launches K3 once and takes no
+    column step of the host loop."""
+    prunes = []
+    real = TH.prune
+
+    def spy(*args, **kw):
+        prunes.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TH, "prune", spy)
+    n, dim = 3000, 32
+    idx = T.HNSWIndex(dim, "sq_euclid", T.HNSWParameters(
+        collection_size=n, max_wave_size=128), device=dev)
+    calls, steps = TA.accept_scan.calls, TH._accept_cols.steps
+    idx.add(clustered(n, dim, n // 500, np.random.default_rng(41), 0.03))
+    assert len(prunes) > 20
+    assert TA.accept_scan.calls - calls == len(prunes)
+    assert TH._accept_cols.steps == steps
 
 
 def _traced(fn, dev):

@@ -7,6 +7,7 @@ per-layer metric reader of the build's regions reads a number from a tiny
 build."""
 
 import importlib.util
+import sys
 import time
 from pathlib import Path
 
@@ -187,6 +188,21 @@ def test_metric_reader_reads_a_tiny_build(tiny_ctx, name):
     # an index without the regions (the parent program) reads nothing
     if name != "build.accept_steps_per_krow":
         assert _reader(name)(dict(tiny_ctx, phases={})) is None
+
+
+def test_accept_kernel_reader_counts_launches(tiny_ctx, monkeypatch):
+    """The K3 launch count over the set-up's rows: 0.0 after a CPU build
+    (the CPU path runs the plain twin), the counter's value per 1,000 rows
+    otherwise, and nothing for a program without the kernel."""
+    from hnswindex_torch import ops
+    from hnswindex_torch.ops import accept_scan as TA
+    read = _reader("build.accept_kernel_calls_per_krow")
+    assert read(tiny_ctx) == pytest.approx(TA.accept_scan.calls / 0.6)
+    monkeypatch.setattr(TA.accept_scan, "calls", 12)
+    assert read(tiny_ctx) == pytest.approx(20.0)
+    monkeypatch.delattr(ops, "accept_scan")
+    monkeypatch.setitem(sys.modules, "hnswindex_torch.ops.accept_scan", None)
+    assert read(tiny_ctx) is None
 
 
 def test_host_times_tile_the_add(tiny_ctx):
