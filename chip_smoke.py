@@ -683,6 +683,7 @@ def fallback_path(vecs: np.ndarray) -> dict:
     """The facade past its pack budget: served from bf16 block tables."""
     import torch
     import hnswindex_torch
+    from hnswindex_torch.index import fallback_probes
     from hnswindex_torch.ops import block_scores as TBS
 
     sub = vecs[:N_FALLBACK]
@@ -708,7 +709,7 @@ def fallback_path(vecs: np.ndarray) -> dict:
     check_answers("facade fallback", qi, qd, NQ, N_FALLBACK)
     gt = exact_top10(torch.as_tensor(sub, device="cuda"), sub[:1000])
     recall = recall_at_10(qi[:1000], gt)
-    n_probe = max(8, fb.n_blocks // 1024)
+    n_probe = fallback_probes(fb.n_blocks)
     print(f"facade fallback: {N_FALLBACK} rows built in {build_s:.2f} s; "
           f"{fb.n_blocks} bf16 blocks, n_probe={n_probe}, tables + first "
           f"batch {first_s:.2f} s; {NQ} x k=10 {qs:.1f} q/s; recall@10 "

@@ -40,6 +40,7 @@ from .core.snapshot import npz_path
 from .ops import distance as dst
 from .ops.block_scores import block_scores
 from .params import HNSWParameters
+from .utils.profiling import phase
 
 _ASSIGN_CHUNK = 8192
 #: queries scored per launch by ``BlockIndex.knn_query`` (bounds the panel)
@@ -296,7 +297,8 @@ def build_device_block_tables(metric: str, rank_vecs: torch.Tensor,
 
 
 def device_block_query(metric: str, tbl: DeviceBlockTables, q: torch.Tensor,
-                       k: int, n_probe: int, oversample: int = 4):
+                       k: int, n_probe: int, oversample: int = 4,
+                       timer=None):
     """Route + exact-score against DeviceBlockTables; returns device
     (dists, ids) with width >= k (callers refine + truncate).
 
@@ -304,16 +306,18 @@ def device_block_query(metric: str, tbl: DeviceBlockTables, q: torch.Tensor,
     re-ranks: with bf16 tiles the panel's own top-k ordering is noise-bound
     inside tight clusters, so recall is bought by panel width, not probe
     count.  bf16 and f32 tiles are scored by kernel K2, int8 tiles by the
-    plain scaled scoring."""
-    bids = _route_exact(metric, tbl.cents, tbl.cent_norms, q,
-                        min(n_probe, tbl.n_blocks), tbl.cent_valid)
+    plain scaled scoring.  With ``timer`` (a ``PhaseTimer``) the route is
+    its region ``block_route`` and the K2 call ``block_score``."""
+    with phase(timer, "block_route"):
+        bids = _route_exact(metric, tbl.cents, tbl.cent_norms, q,
+                            min(n_probe, tbl.n_blocks), tbl.cent_valid)
     kk = max(k, min(oversample * k, 128))
     if tbl.blk_vecs.dtype == torch.int8:
         return _score_blocks(metric, tbl.blk_vecs, tbl.blk_ids,
                              tbl.blk_norms, q, bids, kk,
                              blk_scale=tbl.blk_scale)
     return _score_blocks_panel(metric, tbl.blk_vecs, tbl.blk_ids,
-                               tbl.blk_fill, q, bids, kk)
+                               tbl.blk_fill, q, bids, kk, timer=timer)
 
 
 def place_batch(ix, id_map: np.ndarray, gids: np.ndarray, a: np.ndarray,
@@ -810,17 +814,21 @@ def _route_exact(metric: str, cents: torch.Tensor, cent_norms: torch.Tensor,
 
 def _score_blocks_panel(metric: str, blk_vecs: torch.Tensor,
                         blk_ids: torch.Tensor, blk_fill: torch.Tensor,
-                        q: torch.Tensor, bids: torch.Tensor, k: int):
+                        q: torch.Tensor, bids: torch.Tensor, k: int,
+                        timer=None):
     """Score probed blocks with kernel K2 (ops/block_scores.py) and select
     the top of the distance panel (the reference's
     ``_score_blocks_pallas``).  Partly filled blocks are masked with their
     fill counts (no per-row id gather needed).  Returns ``(vals, ids)`` of
     width ``min(max(2k, 32), P*BS)``: the selection is oversampled and the
-    caller re-ranks in float64."""
+    caller re-ranks in float64.  With ``timer`` the K2 call is its region
+    ``block_score``, and K2 counts its pairs and tiles in it."""
     B, P = bids.shape
     NB, BS, D = blk_vecs.shape
-    panel = block_scores(metric, blk_vecs, bids.contiguous(),
-                         q.contiguous())                      # (B, P*BS)
+    bids, q = bids.contiguous(), q.contiguous()
+    with phase(timer, "block_score"):
+        panel = block_scores(metric, blk_vecs, bids, q,
+                             timer=timer)                     # (B, P*BS)
     bidc = bids.long().clamp(0, NB - 1)
     fillp = blk_fill[bidc]                                    # (B, P)
     ok = (torch.arange(BS, device=q.device)[None, None, :]

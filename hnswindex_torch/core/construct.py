@@ -37,12 +37,11 @@ slot C.  Not ported: the device-side wave cursor and grouping
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from ..ops import distance as dst
 from ..ops.bruteforce import exact_knn, exact_knn2
+from ..utils.profiling import phase
 from . import heuristic
 from .graph import GraphConfig, GraphState, nbr_slice, write_rows
 from .search import beam_search, greedy_descent
@@ -57,11 +56,6 @@ _PRUNE_CHUNK = 1024
 BUILD_SCAN2_MIN = 1 << 19
 #: Scan prefix from which every wave takes the two-stage scan.
 SCAN2_ALWAYS = 1 << 21
-
-
-def _phase(timer, name: str):
-    return timer.phase(name) if timer is not None \
-        else contextlib.nullcontext()
 
 
 def _prune_rows(cfg: GraphConfig, vectors, norms, target_ids, cand_ids,
@@ -226,7 +220,7 @@ def _apply_connections(cfg: GraphConfig, state: GraphState, layer: int, ids,
     C = state.capacity
     nbr_l, deg_l = nbr_slice(state, layer)
     K = nbr_l.shape[1]
-    with _phase(timer, "prune"):
+    with phase(timer, "prune"):
         cic = ci.clamp(0, C - 1)
         cvecs = state.vlo[cic]
         cnorms = state.norms[cic]
@@ -238,7 +232,7 @@ def _apply_connections(cfg: GraphConfig, state: GraphState, layer: int, ids,
         rows = torch.nonzero(conn).flatten()
         nbr_l[ids[rows]] = selpad[rows].to(nbr_l.dtype)
         deg_l[ids[rows]] = cnt[rows].to(deg_l.dtype)
-    with _phase(timer, "reverse"):
+    with phase(timer, "reverse"):
         _add_reverse(cfg, state.vlo, state.norms, nbr_l, deg_l, ids, sel,
                      conn, max_deg)
     return sel
@@ -254,7 +248,7 @@ def _connect_at_layer(cfg: GraphConfig, state: GraphState, layer: int, ids,
     efc = cfg.ef_construction
     p = cfg.build_expand
     max_iters = (cfg.search_iter_factor * efc) // p + 16
-    with _phase(timer, "beam"):
+    with phase(timer, "beam"):
         cd, ci = beam_search(cfg, state, vecs, qn, entry, conn, layer, efc,
                              max_iters, expand=p)
     sel = _apply_connections(cfg, state, layer, ids, cd, ci, conn, max_deg,
@@ -347,7 +341,7 @@ def base_connect_exact(cfg: GraphConfig, state: GraphState, ids, lvls,
     ns = min(nscan, C)
     pre = ns if prefix is None else min(prefix, C)
     ct = state.coarse_table
-    with _phase(timer, "scan"):
+    with phase(timer, "scan"):
         if ct is not None and (ns >= SCAN2_ALWAYS
                                or (scan2 and ns >= BUILD_SCAN2_MIN)):
             cd, ci = exact_knn2(cfg.metric, state.vectors, ct[:pre],
@@ -389,7 +383,7 @@ def upper_connect(cfg: GraphConfig, state: GraphState, ids, lvls,
     has_graph, old_top = _old_top(state)
     conn_top = torch.minimum(lvls, old_top)
     ep_b = torch.where(has_graph, state.ep.long(), -1).expand(Wu)
-    with _phase(timer, "descent"):
+    with phase(timer, "descent"):
         entry, _ = greedy_descent(cfg, state, vecs, vn, ep_b,
                                   old_top.expand(Wu), conn_top)
     for layer in range(top, 0, -1):
@@ -425,7 +419,7 @@ def base_connect(cfg: GraphConfig, state: GraphState, ids, lvls,
     ep_b = torch.where(has_graph, state.ep.long(), -1).expand(W)
     start = torch.where(hint_ok, hint, ep_b)
     start_layer = torch.where(hint_ok, 0, old_top.expand(W))
-    with _phase(timer, "descent"):
+    with phase(timer, "descent"):
         entry, _ = greedy_descent(cfg, state, vecs, vn, start, start_layer,
                                   torch.zeros((W,), dtype=torch.int64,
                                               device=dev))

@@ -35,7 +35,8 @@ import torch
 
 from ..ops import distance as dst
 from ..ops.bruteforce import exact_knn, exact_knn2
-from .construct import _phase, _prune_rows
+from ..utils.profiling import phase
+from .construct import _prune_rows
 from .graph import GraphConfig, GraphState, nbr_slice
 from .search import beam_search
 
@@ -317,24 +318,24 @@ def remove_from_state(cfg: GraphConfig, state: GraphState, arr,
         wave = arr[start:start + wave_cap]
         wave_lvl = lvl_arr[start:start + wave_cap]
         rem = torch.as_tensor(wave).to(dev)
-        with _phase(timer, "mark"):
+        with phase(timer, "mark"):
             rmask = removed_mask(state, rem)
             mark_removed(cfg, state, rmask)
-        with _phase(timer, "affected"):
+        with phase(timer, "affected"):
             aff, multi = affected_masks_all(cfg, state, rmask)
             aff, multi = aff.cpu().numpy(), multi.cpu().numpy()
         for layer in range(int(wave_lvl.max()), -1, -1):
             # only the wave members living on this layer are scanned
             on_l = wave if layer == 0 else wave[wave_lvl >= layer]
             scan = torch.as_tensor(on_l).to(dev)
-            with _phase(timer, "candidates"):
+            with phase(timer, "candidates"):
                 if exact_candidates:
                     scand = exact_repair_candidates(cfg, state, scan, layer,
                                                     remove_ef, ns)
                 else:
                     scand = repair_candidates(cfg, state, scan, rmask, layer,
                                               remove_ef, max_iters)
-            with _phase(timer, "repair"):
+            with phase(timer, "repair"):
                 rpos = torch.full((C + 1,), -1, dtype=torch.int64,
                                   device=dev)
                 rpos[scan] = torch.arange(scan.shape[0], device=dev)

@@ -111,6 +111,13 @@ MIRROR_MAX_BYTES = 1 << 31
 _CAP_ALIGN = 8192
 
 
+def fallback_probes(n_blocks: int) -> int:
+    """Blocks the block fallback probes a query: it scales with the table,
+    so that the probed share of the corpus (hence recall) holds as blocks
+    multiply."""
+    return max(8, n_blocks // 1024)
+
+
 def _bucket(n: int, buckets: Sequence[int]) -> int:
     for b in buckets:
         if n <= b:
@@ -696,28 +703,37 @@ class HNSWIndex:
             quantize = (state_bytes
                         + tile_rows * self.dim * src.element_size()
                         + (1 << 30) > int(0.80 * budget))
-        self._block_fb = build_device_block_tables(
-            self.metric, src, self._state.active.cpu().numpy(),
-            seed=(p.random_seed if p.random_seed >= 0 else None),
-            quantize=quantize)
+        with self.timer.phase("block_tables"):
+            if self.device.type == "cuda" and not quantize:
+                # K2's library: a fresh checkout compiles it here, not
+                # inside the first scoring region
+                from .ops import _cuda
+                _cuda.library("block_scores")
+            self._block_fb = build_device_block_tables(
+                self.metric, src, self._state.active.cpu().numpy(),
+                seed=(p.random_seed if p.random_seed >= 0 else None),
+                quantize=quantize)
         return self._block_fb
 
     def _block_fallback_query(self, fb, q: np.ndarray, k: int
                               ) -> Tuple[np.ndarray, np.ndarray]:
-        """Serve a batch through the device block tables + refine."""
+        """Serve a batch through the device block tables + refine.  Each
+        batch is the region ``block_query`` (route and score), then
+        ``block_refine``."""
         from .block import device_block_query
         n = q.shape[0]
-        # the probe count scales with the table so the probed corpus
-        # fraction (hence recall) holds as blocks multiply
-        n_probe = max(8, fb.n_blocks // 1024)
+        n_probe = fallback_probes(fb.n_blocks)
         out_ids = np.empty((n, k), np.int32)
         out_d = np.empty((n, k), np.float32)
         for i in range(0, n, QUERY_BATCH):
             j = min(n, i + QUERY_BATCH)
-            qt = torch.as_tensor(q[i:j]).to(self.device)
-            _, ids = device_block_query(self.metric, fb, qt, k, n_probe)
-            out_ids[i:j], out_d[i:j] = self._refine(q[i:j],
-                                                    ids.cpu().numpy(), k)
+            with self.timer.phase("block_query"):
+                qt = torch.as_tensor(q[i:j]).to(self.device)
+                _, ids = device_block_query(self.metric, fb, qt, k, n_probe,
+                                            timer=self.timer)
+            with self.timer.phase("block_refine"):
+                out_ids[i:j], out_d[i:j] = self._refine(
+                    q[i:j], ids.cpu().numpy(), k)
         return out_ids, out_d
 
     def _build_filter_mask(self, filter_fnc) -> Optional[torch.Tensor]:

@@ -19,6 +19,12 @@ CUDA tensors and runs the plain ``block_scores_ref`` for CPU tensors.  The
 kernel groups the (query, probe) pairs by block on the device and reads
 each probed tile once for every query that probes it; the small functions
 below size its shared memory and its grid.
+
+Every launch is counted in ``block_scores.launches``.  A caller that passes
+a ``utils.profiling.PhaseTimer`` gets the launch's work in its tallies:
+``block_scores.pairs`` (B*P, known on the host) and ``block_scores.tiles``
+(the distinct tiles the launch probed, summed on the device from the
+kernel's segment offsets, with no host synchronisation).
 """
 
 from __future__ import annotations
@@ -131,7 +137,7 @@ def _smem_bytes(BS: int, D: int, elem: int, rb: int, qt: int) -> int:
             + 4 * rb)
 
 
-def _launch(metric, blk_vecs, bids, q):
+def _launch(metric, blk_vecs, bids, q, timer):
     from . import _cuda
 
     NB, BS, D = blk_vecs.shape
@@ -166,20 +172,26 @@ def _launch(metric, blk_vecs, bids, q):
                  int(blk_vecs.dtype == torch.bfloat16), stream)
     _cuda.check(err, "block_scores")
     block_scores.launches += 1
+    if timer is not None:
+        timer.count("block_scores.pairs", B * P)
+        # a block's segment of the sorted pairs is empty unless it was probed
+        timer.count("block_scores.tiles",
+                    torch.count_nonzero(torch.diff(offsets)))
     return out
 
 
 def block_scores(metric: str, blk_vecs: torch.Tensor, bids: torch.Tensor,
-                 q: torch.Tensor) -> torch.Tensor:
+                 q: torch.Tensor, timer=None) -> torch.Tensor:
     """Distance panel ``(B, P*BS)`` of each query against its probed blocks.
 
     ``blk_vecs (NB, BS, D)`` f32 or bf16, ``bids (B, P)`` i32 (-1 pads are
     clamped to block 0; callers mask them), ``q (B, D)``.  CUDA tensors
-    launch the kernel (and count the launch in ``block_scores.launches``);
+    launch the kernel (and count the launch in ``block_scores.launches``;
+    with ``timer`` its pairs and distinct tiles in the timer's tallies);
     CPU tensors run the plain version."""
     _check(metric, blk_vecs, bids, q)
     if blk_vecs.is_cuda:
-        return _launch(metric, blk_vecs, bids, q)
+        return _launch(metric, blk_vecs, bids, q, timer)
     if blk_vecs.device.type != "cpu":
         raise ValueError(f"block_scores: no kernel for {blk_vecs.device}")
     return block_scores_ref(metric, blk_vecs, bids, q)

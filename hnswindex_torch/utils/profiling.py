@@ -21,6 +21,11 @@
   ``torch.profiler`` stamps its events with, so ``idle_by_region`` can join
   a device trace with them.
 
+``PhaseTimer.count(name, n)`` adds to a ``Tally`` of the work done inside
+the regions (``n`` a host integer, or a device scalar summed on the device
+without a host synchronisation); ``seconds()`` gives each tally as an
+integer under its own name.
+
 No region becomes a ``torch.profiler`` range: a range that launches
 kernels also leaves a device-side event of its name in the trace, which a
 reader of the device's busy time would count as device work.
@@ -43,6 +48,33 @@ FOLD_AT = 64
 OUTSIDE = "outside any region"
 
 
+class Tally:
+    """A count that grows by host integers, or by device scalars summed on
+    their device without a host synchronisation; ``int()`` reads it (and
+    waits for the device where it holds device scalars)."""
+
+    def __init__(self):
+        self._host = 0
+        self._dev: dict = {}         # device -> int64 scalar on it
+
+    def add(self, n) -> None:
+        if isinstance(n, torch.Tensor):
+            held = self._dev.get(n.device)
+            n = n.to(torch.int64)
+            self._dev[n.device] = n if held is None else held + n
+        else:
+            self._host += int(n)
+
+    def __int__(self) -> int:
+        return self._host + sum(int(t) for t in self._dev.values())
+
+
+def phase(timer, name: str):
+    """``timer.phase(name)``, or no region where ``timer`` is None."""
+    return timer.phase(name) if timer is not None \
+        else contextlib.nullcontext()
+
+
 class PhaseTimer:
     def __init__(self, device: torch.device | str):
         self.cuda = torch.device(device).type == "cuda"
@@ -55,6 +87,7 @@ class PhaseTimer:
         # [name, host ns of the regions inside it] per open region
         self._open: list = []
         self._spans: deque = deque(maxlen=SPANS)
+        self._counts: dict = defaultdict(Tally)
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -101,17 +134,24 @@ class PhaseTimer:
             self._total[name] += s.elapsed_time(e) / 1e3
             self._free.append((s, e))
 
+    def count(self, name: str, n) -> None:
+        """Add ``n`` (an integer or a device scalar) to the tally
+        ``name``."""
+        self._counts[name].add(n)
+
     def held_events(self) -> int:
         """CUDA events the timer holds: pairs not folded yet, and folded
         ones kept for reuse."""
         return 2 * (len(self._pending) + len(self._free))
 
     def seconds(self) -> dict:
-        """Summed stream seconds per phase name, and host self seconds
-        per name under ``<name>.host``."""
+        """Summed stream seconds per phase name, host self seconds per name
+        under ``<name>.host``, and each tally of ``count`` as an integer
+        under its name."""
         self._fold(wait=True)
         out = dict(self._total)
         out.update((f"{n}.host", ns / 1e9) for n, ns in self._self_ns.items())
+        out.update((n, int(t)) for n, t in self._counts.items())
         return out
 
     def spans(self) -> list:

@@ -128,3 +128,80 @@ def test_block_fallback_off_keeps_its_error(why, monkeypatch):
     assert TTS.near_tie_rows("sq_euclid", q, vecs, rid, jid).all()
     assert (rid[:, 0] == np.arange(64)).mean() > 0.85
     assert np.all(np.diff(rd, axis=1) >= 0)
+
+
+# -- at the published width of gist-960-euclidean ---------------------------
+
+GIST_DIM, GIST_N, GIST_Q = 960, 3000, 32
+#: the five regions of the fallback path
+FALLBACK_REGIONS = ("block_tables", "block_query", "block_route",
+                    "block_score", "block_refine")
+
+
+@pytest.fixture(scope="module")
+def gist_built():
+    """3,000 clustered rows at D=960 (500 a cluster, noise 0.03, as the
+    gist1m-960 configuration makes them) and 32 held-out queries."""
+    from torch_cases import clustered
+    rng = np.random.default_rng(960)
+    rows = clustered(GIST_N + GIST_Q, GIST_DIM, GIST_N // 500, rng,
+                     spread=0.03)
+    vecs, q = rows[:GIST_N], rows[GIST_N:]
+    ix = T.HNSWIndex(GIST_DIM, parameters=T.HNSWParameters(
+        collection_size=GIST_N, pack_max_bytes=0, pack_min_count=0),
+        device="cpu")
+    return ix, ix.add(vecs), vecs, q
+
+
+def test_block_fallback_at_gist_width_matches_the_plain_reference(
+        gist_built, monkeypatch):
+    """Past the pack and host-mirror budgets, as a 1M x 960 index is on one
+    card: the ids against the benchmark's plain exact search at a recall
+    bar, every distance against its float64 direct formula to 1e-5
+    relative (the float32 refine on the device)."""
+    from hnswbench import reference
+    from hnswindex_torch import index as TI
+    from hnswindex_torch.utils import refine
+    monkeypatch.delenv("HNSW_HBM_BYTES", raising=False)
+    monkeypatch.setattr(TI, "MIRROR_MAX_BYTES", 0)
+    called = []
+    monkeypatch.setattr(TI, "refine_on_device", lambda *a: called.append(1)
+                        or refine.refine_on_device(*a))
+    ix, ids, vecs, q = gist_built
+    ix._invalidate_caches()
+    got, gd = ix.knn_query(q, k=10)
+    assert ix._pack_refusal == "budget"
+    assert ix._block_fb.blk_vecs.dtype == torch.bfloat16 and called
+    row_of = np.empty(GIST_N, np.int64)
+    row_of[ids] = np.arange(GIST_N)
+    base, qt = torch.from_numpy(vecs), torch.from_numpy(q)
+    truth, _ = reference.topk("sq_euclid", base, qt, 10)
+    rows = row_of[got]
+    hits = sum(np.intersect1d(a, b).size
+               for a, b in zip(rows, truth.numpy()))
+    assert hits / got.size >= 0.95, hits / got.size
+    want = reference.direct("sq_euclid", qt, base[torch.from_numpy(rows)])
+    np.testing.assert_allclose(gd, want.numpy(), rtol=1e-5)
+    assert np.all(np.diff(gd, axis=1) >= 0)
+
+
+@pytest.mark.parametrize("path", ["fallback", "packed"])
+def test_block_fallback_regions(gist_built, monkeypatch, path):
+    """The fallback's five regions appear in the index's timer after a
+    fallback query, and none after a packed one."""
+    from hnswindex_torch.utils.profiling import PhaseTimer
+    monkeypatch.delenv("HNSW_HBM_BYTES", raising=False)
+    ix, _, _, q = gist_built
+    if path == "packed":
+        monkeypatch.setattr(ix.params, "pack_max_bytes", 1 << 40)
+    ix._invalidate_caches()
+    monkeypatch.setattr(ix, "timer", PhaseTimer("cpu"))
+    ix.knn_query(q[:8], k=10)
+    got = ix.timer.seconds()
+    if path == "fallback":
+        assert set(FALLBACK_REGIONS) <= set(got)
+        assert got["block_query"] >= got["block_route"] + got["block_score"]
+    else:
+        assert "pack" in got
+        assert not set(FALLBACK_REGIONS) & set(got)
+    ix._invalidate_caches()

@@ -10,17 +10,21 @@ installed; there the suite's conftest (which configures jax) is left out:
 Bars: block scores (K2) against its plain version at rtol=atol=1e-4 for
 float32 and bfloat16 tiles alike (both widen the same stored values and sum
 in float32; only the order of the sums differs), also at skewed probe
-tables and tiles past the shared-memory budget, and bit-identical panels
-from repeated calls; a 3,000-row BlockIndex on
-the card scores through K2 and is exact when every block is probed.
-Lane-min scan vals at rtol=atol=1e-4, ids equal on >= 0.999 of live
-lanes, dead lanes -1; exact_knn2 on the card against the same call on the
-CPU: ids equal on >= 0.99 of entries, distances at rtol=atol=1e-5 where
-ids agree, and as the exact query calls it at k=10 (the kernel) and
-k=300 (the panel branch), there at atol 1e-4 (small distances of large
-norms); a 2,000-row build on the card through the kernel keeps the row
-invariants and self-recall > 0.85; a 3,000-row beam-path build on the card
-matches the same build on the CPU at per-layer edge overlap >= 0.98.
+tables, tiles past the shared-memory budget and the gist1m-960 cell's
+shape (2,000 bf16 tiles of 128 x 960, 1,024 queries x 10 probes), and
+bit-identical panels from repeated calls; each launch counts itself, and
+in a timer's tallies its B*P pairs and its distinct probed blocks; a
+3,000-row BlockIndex on the card scores through K2 and is exact when every
+block is probed.  Lane-min scan vals at rtol=atol=1e-4, ids equal on
+>= 0.999 of live lanes, dead lanes -1, also at the D=960 build's deep
+shape (2^18 rows, 512 queries, query chunks streamed); exact_knn2 on the
+card against the same call on the CPU: ids equal on >= 0.99 of entries,
+distances at rtol=atol=1e-5 where ids agree, and as the exact query calls
+it at k=10 (the kernel) and k=300 (the panel branch), there at atol 1e-4
+(small distances of large norms); a 2,000-row build on the card through the
+kernel keeps the row invariants and self-recall > 0.85; a 3,000-row
+beam-path build on the card matches the same build on the CPU at per-layer
+edge overlap >= 0.98.
 The sharded front ends on two shards of the one card: the exact query
 launches the lane-min kernel on each shard, its scan gives the plain
 version's ids on >= 0.999 of entries and its answers recall@10 >= 0.99; a
@@ -86,6 +90,7 @@ def _scan_case(metric, C, D, B, dev, seed=7):
     (40000, 100, 300),              # D = 100 (plain-load tiles), ragged wave
     (30000, 72, 300),               # D = 72: a second chunk of 8 values by TMA
     (9000, 1024, 130),              # D > 384: query chunks stream too
+    (1 << 18, 960, 512),            # the D=960 build's deep shape: streamed
 ])
 def test_lane_min_scan_matches_ref_on_card(dev, metric, C, D, B):
     args = _scan_case(metric, C, D, B, dev)
@@ -537,6 +542,7 @@ def _skewed_bids(table, NB, B, P, rng):
     ("d100_bf16_plain_loads", 150, 128, 100, 90, 6, torch.bfloat16,
      "random"),
     ("one_pair", 30, 128, 128, 1, 1, torch.float32, "random"),
+    ("gist_cell_bf16", 2000, 128, 960, 1024, 10, torch.bfloat16, "random"),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_block_scores_grouping_edges_on_card(dev, metric, name, NB, BS, D, B,
                                              P, dtype, table):
@@ -552,6 +558,31 @@ def test_block_scores_grouping_edges_on_card(dev, metric, name, NB, BS, D, B,
     torch.cuda.synchronize()
     want = TBS.block_scores_ref(metric, blk, bids, q)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("table", ["random", "one_block", "all_pads",
+                                   "repeat_in_query"])
+def test_block_scores_counts_pairs_and_tiles_on_card(dev, table):
+    """Each launch counts itself in ``block_scores.launches``, and with a
+    timer adds B*P to its tally ``block_scores.pairs`` and its distinct
+    probed blocks (a pad counts as block 0, which it scores) to
+    ``block_scores.tiles``; a launch without a timer adds to no tally."""
+    from hnswindex_torch.utils.profiling import PhaseTimer
+    NB, B, P = 300, 200, 9
+    blk, _, q = _blocks_case("sq_euclid", NB, 128, 64, B, P, torch.bfloat16,
+                             dev)
+    bids = torch.from_numpy(_skewed_bids(table, NB, B, P,
+                                         np.random.default_rng(5))).to(dev)
+    distinct = torch.unique(bids.clamp(0, NB - 1)).numel()
+    timer = PhaseTimer(dev)
+    n0 = TBS.block_scores.launches
+    for _ in range(2):
+        TBS.block_scores("sq_euclid", blk, bids, q, timer=timer)
+    TBS.block_scores("sq_euclid", blk, bids, q)
+    assert TBS.block_scores.launches - n0 == 3
+    got = timer.seconds()
+    assert got["block_scores.pairs"] == 2 * B * P
+    assert got["block_scores.tiles"] == 2 * distinct
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -19,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 import hnswindex_torch as T
 from hnswindex_torch.core import heuristic
 from hnswindex_torch.utils import profiling, refine
-from hnswindex_torch.utils.profiling import PhaseTimer, idle_by_region
+from hnswindex_torch.utils.profiling import PhaseTimer, Tally, idle_by_region
 
 torch.set_num_threads(1)
 
@@ -66,6 +66,21 @@ def test_span_ring_keeps_the_last_regions():
     assert [s[0] for s in spans] == [f"r{i % 3}"
                                      for i in range(10_000 - 4096, 10_000)]
     assert all(s[1] <= s[2] for s in spans)
+
+
+def test_tally_sums_host_and_device_counts():
+    t = Tally()
+    t.add(3)
+    t.add(torch.tensor(4, dtype=torch.int32))
+    t.add(torch.count_nonzero(torch.tensor([0, 2, 5])))
+    assert int(t) == 9
+    timer = PhaseTimer("cpu")
+    with timer.phase("a"):
+        timer.count("a.items", 5)
+        timer.count("a.items", torch.tensor(2))
+    got = timer.seconds()
+    assert set(got) == {"a", "a.host", "a.items"}
+    assert got["a.items"] == 7 and isinstance(got["a.items"], int)
 
 
 def test_region_shares_the_profilers_clock():
@@ -211,3 +226,41 @@ def test_host_times_tile_the_add(tiny_ctx):
                 for n in ("wave", "upper", "scan", "prune", "reverse"))
     assert parts == pytest.approx(ph["wave"], rel=1e-6)
     assert parts <= tiny_ctx["setup"]["add_s"]
+
+
+@pytest.fixture(scope="module")
+def fallback_ctx():
+    """The ``ctx`` of a tiny index served by its block fallback (the pack
+    past a zero budget) in its first query."""
+    vecs = _corpus()
+    idx = T.HNSWIndex(16, "sq_euclid", T.HNSWParameters(
+        collection_size=600, max_wave_size=64, pack_min_count=0,
+        pack_max_bytes=0), device="cpu")
+    t0 = time.perf_counter()
+    idx.add(vecs)
+    add_s = time.perf_counter() - t0
+    idx.knn_query(vecs[:40], 5)
+    assert idx._block_fb is not None
+    return dict(setup=dict(rows=600, add_s=add_s, first_query_s=1.0),
+                phases=idx.timer.seconds(),
+                config=dict(dim=16, index=dict(max_wave_size=64)), card="")
+
+
+@pytest.mark.parametrize("name,reads", [
+    ("setup.build_ms_per_krow", True), ("build.upper_ms_per_krow", True),
+    ("build.prune_ms_per_krow", True), ("build.reverse_ms_per_krow", True),
+    ("build.scan_roofline", True), ("build.wave_host_ms_per_krow", True),
+    ("build.upper_host_ms_per_krow", True),
+    ("build.scan_host_ms_per_krow", True),
+    ("build.prune_host_ms_per_krow", True),
+    ("build.reverse_host_ms_per_krow", True),
+    ("build.accept_steps_per_krow", True),
+    ("build.accept_kernel_calls_per_krow", True),
+    ("setup.pack_build_s", False)])
+def test_build_readers_read_an_index_served_by_its_fallback(
+        fallback_ctx, name, reads):
+    """The build's metrics read an index whose queries the block fallback
+    serves, as they read a packed one; the pack's build reads nothing
+    there, since no pack is built."""
+    v = _reader(name)(fallback_ctx)
+    assert (v is not None) == reads, v
