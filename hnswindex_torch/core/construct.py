@@ -8,10 +8,11 @@ scatters.  A wave takes one of two paths, as the facade chooses:
 
 * exact (while the corpus is at most ``exact_build_threshold`` rows):
   ``scatter_wave`` stores the members; ``upper_connect_exact`` connects
-  members with level >= 1 at layers top..1 from exact candidates over the
-  upper-node panel; ``base_connect_exact`` connects every member at layer 0
-  from the exact efConstruction nearest neighbours of a corpus scan, then
-  promotes the entry point (GraphConnector.cs:36-41).
+  members with level >= 1 at layers top..1, all in one pass, from exact
+  candidates over the upper-node panel; ``base_connect_exact`` connects
+  every member at layer 0 from the exact efConstruction nearest neighbours
+  of a corpus scan, then promotes the entry point
+  (GraphConnector.cs:36-41).
 * beam (past the threshold): ``scatter_wave``; ``upper_connect`` descends
   greedily to each upper member's top connect layer and connects it at
   layers L-1..1 by beam search (``_connect_at_layer``), chaining the
@@ -132,7 +133,7 @@ def normalize_base_rows(cfg: GraphConfig, vlo, norms, nbr0, deg0,
 
 
 def _add_reverse(cfg: GraphConfig, vlo, norms, nbr_l, deg_l, src_ids, sel,
-                 mask, max_deg: int):
+                 mask, max_deg: int, row_off=None):
     """Add back-edges v -> u for every forward edge u -> v of the wave,
     writing into ``nbr_l``/``deg_l`` in place.
 
@@ -141,24 +142,34 @@ def _add_reverse(cfg: GraphConfig, vlo, norms, nbr_l, deg_l, src_ids, sel,
     nearest-first) is assembled and written with one row scatter.  Targets
     whose row would exceed the storage width K are re-pruned over existing
     edges plus their first A=8 arrivals (GraphConnector.cs:209-211,
-    222-262)."""
+    222-262).
+
+    ``nbr_l (T, K)`` is one layer's table (T = C), or with ``row_off`` the
+    layer-major stack of several: ``row_off (W,)`` is the table row of
+    node 0 in source row w's layer, so target v of row w is table row
+    ``row_off[w] + v``.  Pairs of different layers never share a target
+    row, and within one the order is the single layer's."""
     W, Ms = sel.shape
     P = W * Ms
-    C, K = nbr_l.shape
+    T, K = nbr_l.shape
+    C = norms.shape[0]
     dev = nbr_l.device
 
     u = src_ids.long().repeat_interleave(Ms)
     v = sel.reshape(P).long()
     pv = (v >= 0) & mask.repeat_interleave(Ms)
     vcl = v.clamp(0, C - 1)
+    # table row of each target
+    tv = vcl if row_off is None else \
+        vcl + row_off.long().repeat_interleave(Ms)
     # drop arrivals already in the target's row (mutual selections within
     # the wave were stored by the forward writes)
-    already = torch.any(nbr_l[vcl] == u[:, None], dim=1)
+    already = torch.any(nbr_l[tv] == u[:, None], dim=1)
     pv = pv & ~already
     ucl = u.clamp(0, C - 1)
     du = dst.gathered(cfg.metric, vlo[ucl], norms[ucl],
                       vlo[vcl][:, None, :], norms[vcl][:, None])[:, 0]
-    key = torch.where(pv, v, C)                    # invalid -> sort to tail
+    key = torch.where(pv, tv, T)                   # invalid -> sort to tail
     o1 = torch.argsort(torch.where(pv, du, _INF), stable=True)
     order = o1[torch.argsort(key[o1], stable=True)]
     sv = key[order]
@@ -167,7 +178,7 @@ def _add_reverse(cfg: GraphConfig, vlo, norms, nbr_l, deg_l, src_ids, sel,
     ar = torch.arange(P, device=dev)
     isstart = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                          sv[1:] != sv[:-1]])
-    svc = sv.clamp(0, C - 1)
+    svc = sv.clamp(0, T - 1)
 
     # group sizes: the next start's position bounds each group
     sp = torch.where(isstart, ar, P)
@@ -199,8 +210,10 @@ def _add_reverse(cfg: GraphConfig, vlo, norms, nbr_l, deg_l, src_ids, sel,
     w_ok = (ara[None, :] < torch.clamp(gcnt, max=A)[:, None]) \
         & over_row[:, None]
     cand = torch.cat([ex, torch.where(w_ok, wu, -1)], dim=1)   # (P, K+A)
-    sel2, cnt2 = _prune_rows_compact(cfg, vlo, norms, sv, cand, over_row,
-                                     max_deg)
+    # the re-prune's targets are nodes: a stacked table's rows map back
+    tgt_node = sv if row_off is None else vcl[order]
+    sel2, cnt2 = _prune_rows_compact(cfg, vlo, norms, tgt_node, cand,
+                                     over_row, max_deg)
     sel2pad = torch.full((P, K), -1, dtype=torch.int64, device=dev)
     sel2pad[:, :max_deg] = sel2
 
@@ -212,13 +225,24 @@ def _add_reverse(cfg: GraphConfig, vlo, norms, nbr_l, deg_l, src_ids, sel,
     deg_l[tgt] = final_cnt[rows].to(deg_l.dtype)
 
 
-def _apply_connections(cfg: GraphConfig, state: GraphState, layer: int, ids,
+def _apply_connections(cfg: GraphConfig, state: GraphState, layer, ids,
                        cd, ci, conn, max_deg: int, timer=None):
     """Heuristic prune, forward-row write, back edges + overflow prune
-    (GraphConnector.cs:190-214) for one layer, in place.  Returns sel."""
+    (GraphConnector.cs:190-214) for one layer, in place.  Returns sel.
+
+    ``layer`` is an int, or a ``(W,)`` tensor of per-row layers >= 1: the
+    rows then connect at their own layers in one pass over the stacked
+    upper table ``nbru.view((L-1)*C, M)``, row ``(layer-1)*C + id``."""
     W = ids.shape[0]
     C = state.capacity
-    nbr_l, deg_l = nbr_slice(state, layer)
+    if torch.is_tensor(layer):
+        nbr_l = state.nbru.view(-1, state.nbru.shape[2])
+        deg_l = state.degu.view(-1)
+        off = (layer.long() - 1) * C
+        keys = ids + off
+    else:
+        nbr_l, deg_l = nbr_slice(state, layer)
+        off, keys = None, ids
     K = nbr_l.shape[1]
     with phase(timer, "prune"):
         cic = ci.clamp(0, C - 1)
@@ -230,11 +254,11 @@ def _apply_connections(cfg: GraphConfig, state: GraphState, layer: int, ids,
         selpad = torch.full((W, K), -1, dtype=torch.int64, device=ids.device)
         selpad[:, :max_deg] = sel
         rows = torch.nonzero(conn).flatten()
-        nbr_l[ids[rows]] = selpad[rows].to(nbr_l.dtype)
-        deg_l[ids[rows]] = cnt[rows].to(deg_l.dtype)
+        nbr_l[keys[rows]] = selpad[rows].to(nbr_l.dtype)
+        deg_l[keys[rows]] = cnt[rows].to(deg_l.dtype)
     with phase(timer, "reverse"):
         _add_reverse(cfg, state.vlo, state.norms, nbr_l, deg_l, ids, sel,
-                     conn, max_deg)
+                     conn, max_deg, row_off=off)
     return sel
 
 
@@ -279,10 +303,16 @@ def upper_connect_exact(cfg: GraphConfig, state: GraphState, ids, lvls,
 
     ``panel_ids (Cu,)`` holds every node with level >= 1 (-1 padded).  One
     distance panel, ranked on the bf16 mirror when present, replaces the
-    reference HNSW's greedy descent and beams; per layer the candidates are
-    masked to panel rows with level >= layer, the nearest ef_construction
-    are rescored in f32 and connected.  ``max_lvl`` (0 = all layers) may be
-    the wave's top level: layers above it connect nobody."""
+    reference HNSW's greedy descent and beams.  The layers share nothing
+    but the panel (layer l reads and writes only its own table), so they
+    run as one chain: the members are stacked once per layer, top first,
+    each row's candidates masked to panel rows with level >= its layer,
+    and the nearest ef_construction of every row are rescored in f32,
+    pruned and connected in one ``_apply_connections`` over the stacked
+    upper table.  ``max_lvl`` (0 = all layers) may be the wave's top
+    level: layers above it connect nobody.  ``timer`` takes the tallies
+    ``upper.prunes`` (forward prunes) and ``upper.layers`` (the layers
+    they cover), and opens no region."""
     C = state.capacity
     L = state.num_levels
     top = L - 1 if max_lvl <= 0 else min(L - 1, max_lvl)
@@ -290,7 +320,6 @@ def upper_connect_exact(cfg: GraphConfig, state: GraphState, ids, lvls,
     ids = ids.long()
     lvls = lvls.long()
     has_graph, old_top = _old_top(state)
-    conn_top = torch.minimum(lvls, old_top)
 
     pc = panel_ids.long().clamp(0, C - 1)
     pok = (panel_ids >= 0) & state.active[pc]
@@ -304,21 +333,32 @@ def upper_connect_exact(cfg: GraphConfig, state: GraphState, ids, lvls,
     # self-exclusion: the wave's own members are already in the panel
     dall = torch.where(panel_ids[None, :].long() == ids[:, None], _INF, dall)
 
-    qvf = state.vlo[ids]
+    # row j*Wu + i: member i at layer top - j
+    Wu = ids.shape[0]
+    rl = torch.arange(top, 0, -1, device=ids.device).repeat_interleave(Wu)
+    rid = ids.repeat(top)
+    # a member connects at its layers up to the old graph's top
+    conn = has_graph & (rl <= torch.minimum(lvls, old_top).repeat(top))
+    d_r = torch.where(pok[None, :] & (plvl[None, :] >= rl[:, None]),
+                      dall.repeat(top, 1), _INF)
     NC = min(cfg.ef_construction, Cu)
-    for layer in range(top, 0, -1):
-        conn = has_graph & (layer <= conn_top) & (lvls >= layer)
-        d_l = torch.where((pok & (plvl >= layer))[None, :], dall, _INF)
-        vals, idx = torch.topk(d_l, NC, dim=1, largest=False)
-        ci = torch.where(torch.isfinite(vals), panel_ids.long()[idx], -1)
-        # f32 rescore of the survivors: bf16 noise must not reach the
-        # heuristic's accept test
-        cic = ci.clamp(0, C - 1)
-        cd = dst.gathered(cfg.metric, qvf, qn, state.vlo[cic],
-                          state.norms[cic])
-        cd = torch.where(ci >= 0, cd, _INF)
-        _apply_connections(cfg, state, layer, ids, cd, ci, conn,
-                           cfg.max_edges, timer)
+    vals, idx = torch.topk(d_r, NC, dim=1, largest=False)
+    ci = torch.where(torch.isfinite(vals), panel_ids.long()[idx], -1)
+    # f32 rescore of the survivors (bf16 noise must not reach the
+    # heuristic's accept test), a layer's rows at a time: on the card the
+    # batched product rounds by its batch size, and a layer's edges must
+    # not depend on how many layers its wave stacks
+    qvf = state.vlo[ids]
+    cd = torch.cat([dst.gathered(cfg.metric, qvf, qn, state.vlo[c],
+                                 state.norms[c])
+                    for c in ci.clamp(0, C - 1).split(Wu)])
+    cd = torch.where(ci >= 0, cd, _INF)
+    # the timer stays out: regions here would file the upper layers'
+    # prune and reverse under layer 0's names
+    _apply_connections(cfg, state, rl, rid, cd, ci, conn, cfg.max_edges)
+    if timer is not None:
+        timer.count("upper.prunes", 1)
+        timer.count("upper.layers", top)
 
 
 def base_connect_exact(cfg: GraphConfig, state: GraphState, ids, lvls,

@@ -218,7 +218,7 @@ def insert_wave(cfg: G.GraphConfig, st: G.GraphState, wid, wvec, wlvl,
     if upt is not None:
         with timer.phase("upper"):
             CS.upper_connect_exact(cfg, st, wid[upt], wlvl[upt], panel,
-                                   max_lvl)
+                                   max_lvl, timer)
     nscan = min(st.capacity, max(SCAN_FLOOR, _next_pow2(scan_hwm)))
     CS.base_connect_exact(cfg, st, wid, wlvl, nscan=nscan, scan2=full,
                           prefix=scan_hwm, timer=timer)

@@ -252,3 +252,44 @@ def test_efc300_build_takes_panel_branch_in_both_packages():
     assert panels[0] > 0, "the port never took the panel branch"
     overlap = _overlap(built["jax"]._state, built["torch"]._state)
     assert overlap and min(overlap) >= EDGE_BAR, overlap
+
+
+@pytest.mark.parametrize("metric", ["sq_euclid", "cosine"])
+def test_stacked_upper_connect_builds_the_per_layer_graph(metric,
+                                                          monkeypatch):
+    """1,500 x 16 rows with distribution_rate=1.0, so waves reach level 3
+    and upper rows overflow their M columns: the one-pass upper connect
+    over the stacked upper table builds the tables of the per-layer loop
+    (``torch_cases.upper_connect_per_layer``) bit for bit, and tallies
+    one prune per wave covering its layers."""
+    from torch_cases import upper_connect_per_layer, upper_overflows
+
+    n, dim = 1500, 16
+    vecs = _small_corpus(n, dim, 94)
+    tops = []
+    real = TC.upper_connect_exact
+
+    def spy(cfg, state, ids, lvls, panel_ids, max_lvl=0, timer=None):
+        tops.append(min(state.num_levels - 1, max_lvl))
+        return real(cfg, state, ids, lvls, panel_ids, max_lvl, timer)
+
+    built = {}
+    for how in ("stacked", "per_layer"):
+        with monkeypatch.context() as mp:
+            over = upper_overflows(mp, M)
+            mp.setattr(TC, "upper_connect_exact",
+                       spy if how == "stacked" else upper_connect_per_layer)
+            ix = T.HNSWIndex(dim, metric, T.HNSWParameters(
+                collection_size=n, distribution_rate=1.0), device="cpu")
+            ix.add(vecs)
+        st = ix._state
+        built[how] = (st.nbru, st.degu, st.nbr0, st.deg0, st.ep)
+        if how == "stacked":
+            assert max(tops) >= 3, tops
+            assert sum(over) > 0, over
+            ph = ix.timer.seconds()
+            assert ph["upper.prunes"] == len(tops)
+            assert ph["upper.layers"] == sum(tops)
+    for name, a, b in zip(("nbru", "degu", "nbr0", "deg0", "ep"),
+                          built["stacked"], built["per_layer"]):
+        assert torch.equal(a, b), name

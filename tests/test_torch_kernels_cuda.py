@@ -37,7 +37,9 @@ phase timer holds few CUDA events over 10,000 regions.
 The accept scan (K3) equals its plain twin bit for bit, ties, NaN and
 invalid columns included; a 20,000-row build and a removal repair on the
 card give the same tables with K3 as with the twin, and each prune on the
-card is one launch and no column step."""
+card is one launch and no column step.  The one-pass upper connect builds
+the per-layer loop's tables bit for bit on the card at 20,000 rows, with
+one K3 launch a wave for its prune and one for its overflow re-prune."""
 
 import functools
 
@@ -53,7 +55,8 @@ from hnswindex_torch.ops import block_scores as TBS
 from hnswindex_torch.ops import bruteforce as TB
 from hnswindex_torch.ops import distance as tdst
 from hnswindex_torch.ops import fused_scan as TF
-from torch_cases import accept_inputs, clustered
+from torch_cases import (accept_inputs, clustered, upper_connect_per_layer,
+                         upper_overflows)
 
 pytestmark = pytest.mark.cuda
 
@@ -396,6 +399,54 @@ def test_prune_on_card_is_one_launch_and_no_step(dev, monkeypatch):
     assert len(prunes) > 20
     assert TA.accept_scan.calls - calls == len(prunes)
     assert TH._accept_cols.steps == steps
+
+
+@pytest.mark.parametrize("metric", ["sq_euclid", "cosine"])
+def test_stacked_upper_connect_on_card_builds_the_per_layer_graph(
+        dev, metric, monkeypatch):
+    """A seeded 20,000-row build on the card with the one-pass upper
+    connect, and the same build with the per-layer loop
+    (``torch_cases.upper_connect_per_layer``): identical tables.  In the
+    one-pass build each wave's upper connect launches K3 once for its
+    prune and once more where upper rows overflow, whatever its layer
+    count, and tallies one prune covering its layers."""
+    n, dim = 20000, 64
+    vecs = clustered(n, dim, n // 500, np.random.default_rng(43), 0.03)
+    M = T.HNSWParameters().max_edges
+    real = TC.upper_connect_exact
+    waves = []
+
+    def spy(cfg, state, ids, lvls, panel_ids, max_lvl=0, timer=None):
+        over.clear()
+        before = (TA.accept_scan.calls, timer.seconds())
+        real(cfg, state, ids, lvls, panel_ids, max_lvl, timer)
+        after = (TA.accept_scan.calls, timer.seconds())
+        waves.append(dict(
+            layers=min(state.num_levels - 1, max_lvl),
+            calls=after[0] - before[0], overflowed=sum(over) > 0,
+            prunes=after[1]["upper.prunes"]
+            - before[1].get("upper.prunes", 0),
+            tallied=after[1]["upper.layers"]
+            - before[1].get("upper.layers", 0)))
+
+    built = []
+    for how in ("stacked", "per_layer"):
+        with monkeypatch.context() as mp:
+            over = upper_overflows(mp, M)
+            mp.setattr(TC, "upper_connect_exact",
+                       spy if how == "stacked" else upper_connect_per_layer)
+            idx = T.HNSWIndex(dim, metric, T.HNSWParameters(
+                collection_size=n), device=dev)
+            idx.add(vecs)
+        built.append(_tables(idx))
+    assert len(waves) > 20
+    assert max(w["layers"] for w in waves) >= 2
+    assert any(w["overflowed"] for w in waves)
+    for w in waves:
+        assert w["calls"] == 1 + w["overflowed"] <= 2, w
+        assert w["prunes"] == 1 and w["tallied"] == w["layers"], w
+    for name, a, b in zip(("nbr0", "deg0", "nbru", "degu", "ep"), *built):
+        assert torch.equal(a, b), name
 
 
 def _traced(fn, dev):

@@ -2,7 +2,8 @@
 regions, takes a nested region's host time off its parent's, keeps a
 bounded ring of spans on the profiler's clock, and the device's idle gaps
 join those spans; the refine opens its profiler range only while a
-profiler records; the accept scan counts its column steps; and every
+profiler records; the accept scan counts its column steps; the upper
+connect tallies its prunes and their layers; and every
 per-layer metric reader of the build's regions reads a number from a tiny
 build."""
 
@@ -220,6 +221,22 @@ def test_accept_kernel_reader_counts_launches(tiny_ctx, monkeypatch):
     assert read(tiny_ctx) is None
 
 
+def test_upper_layers_reader_reads_layers_per_prune(tiny_ctx):
+    """The upper connect's layers over its prunes: one prune a wave in a
+    tiny build, covering its wave's layers, so at least 1; the tallies'
+    own quotient otherwise, and nothing for a program without them."""
+    read = _reader("build.upper_layers_per_prune")
+    ph = tiny_ctx["phases"]
+    assert ph["upper.prunes"] > 0
+    assert read(tiny_ctx) == pytest.approx(ph["upper.layers"]
+                                           / ph["upper.prunes"])
+    assert read(tiny_ctx) >= 1.0
+    fake = dict(tiny_ctx, phases={"upper.prunes": 50, "upper.layers": 99})
+    assert read(fake) == pytest.approx(1.98)
+    assert read(dict(tiny_ctx, phases={})) is None
+    assert read(dict(tiny_ctx, phases={"upper.host": 1.0})) is None
+
+
 def test_host_times_tile_the_add(tiny_ctx):
     ph = tiny_ctx["phases"]
     parts = sum(ph[f"{n}.host"]
@@ -256,6 +273,7 @@ def fallback_ctx():
     ("build.reverse_host_ms_per_krow", True),
     ("build.accept_steps_per_krow", True),
     ("build.accept_kernel_calls_per_krow", True),
+    ("build.upper_layers_per_prune", True),
     ("setup.pack_build_s", False)])
 def test_build_readers_read_an_index_served_by_its_fallback(
         fallback_ctx, name, reads):

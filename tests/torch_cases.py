@@ -1,10 +1,14 @@
-"""Inputs shared by the port's CPU tests and its card tests.
+"""Inputs and oracles shared by the port's CPU tests and its card tests.
 
 The module imports no jax, so ``tests/test_torch_kernels_cuda.py`` can
 import it where jax is not installed.  pytest collects no test here.
 """
 
 import numpy as np
+import torch
+
+from hnswindex_torch.core import construct as TC
+from hnswindex_torch.ops import distance as dst
 
 
 def clustered(n, dim, n_centers, rng, spread=0.05):
@@ -49,3 +53,60 @@ def accept_inputs(seed, B, N, chunk=128):
         valid[1, 3:] = False
         pd[2] = np.inf
     return pd, sd, valid
+
+
+def upper_connect_per_layer(cfg, state, ids, lvls, panel_ids, max_lvl=0,
+                            timer=None):
+    """``construct.upper_connect_exact`` one layer at a time, top first:
+    per layer the masked top-k over the panel, the f32 rescore and
+    ``_apply_connections`` on that layer's own table.  The oracle of the
+    stacked one-pass connect, which must build the same tables bit for
+    bit.  Records no tally."""
+    C = state.capacity
+    L = state.num_levels
+    top = L - 1 if max_lvl <= 0 else min(L - 1, max_lvl)
+    Cu = panel_ids.shape[0]
+    ids = ids.long()
+    lvls = lvls.long()
+    has_graph, old_top = TC._old_top(state)
+    conn_top = torch.minimum(lvls, old_top)
+    pc = panel_ids.long().clamp(0, C - 1)
+    pok = (panel_ids >= 0) & state.active[pc]
+    plvl = torch.where(pok, state.level[pc], -1)
+    store = state.coarse_table
+    store = state.vlo if store is None else store
+    qn = state.norms[ids]
+    dots = store[ids].float() @ store[pc].float().T
+    dall = dst.from_dot(cfg.metric, dots, qn[:, None], state.norms[pc][None])
+    dall = torch.where(panel_ids[None, :].long() == ids[:, None],
+                       float("inf"), dall)
+    qvf = state.vlo[ids]
+    NC = min(cfg.ef_construction, Cu)
+    for layer in range(top, 0, -1):
+        conn = has_graph & (layer <= conn_top) & (lvls >= layer)
+        d_l = torch.where((pok & (plvl >= layer))[None, :], dall,
+                          float("inf"))
+        vals, idx = torch.topk(d_l, NC, dim=1, largest=False)
+        ci = torch.where(torch.isfinite(vals), panel_ids.long()[idx], -1)
+        cic = ci.clamp(0, C - 1)
+        cd = dst.gathered(cfg.metric, qvf, qn, state.vlo[cic],
+                          state.norms[cic])
+        cd = torch.where(ci >= 0, cd, float("inf"))
+        TC._apply_connections(cfg, state, layer, ids, cd, ci, conn,
+                              cfg.max_edges)
+
+
+def upper_overflows(monkeypatch, max_edges):
+    """A list that collects, per overflow re-prune of an upper-layer row
+    set (the re-prunes at width ``max_edges``; layer 0's run at twice it),
+    the number of rows re-pruned, while ``monkeypatch`` holds."""
+    seen = []
+    real = TC._prune_rows_compact
+
+    def spy(cfg, vlo, norms, target_ids, cand_ids, mask, max_deg):
+        if max_deg == max_edges:
+            seen.append(int(mask.sum()))
+        return real(cfg, vlo, norms, target_ids, cand_ids, mask, max_deg)
+
+    monkeypatch.setattr(TC, "_prune_rows_compact", spy)
+    return seen
