@@ -40,11 +40,12 @@ def read_seed(cell, seed: int, probes, requests: int, device="cuda") -> list:
     set-up took."""
     from hnswindex_torch import index as TI
     from hnswindex_torch.ops import block_scores as TBS
+    from hnswindex_torch.utils import refine
 
     rule = TI.fallback_probes
     refined = []
-    on_device = TI.refine_on_device
-    TI.refine_on_device = lambda *a: refined.append(1) or on_device(*a)
+    on_device = refine.refine_on_device
+    refine.refine_on_device = lambda *a: refined.append(1) or on_device(*a)
     out = []
 
     def planted(kind, st):
@@ -77,7 +78,7 @@ def read_seed(cell, seed: int, probes, requests: int, device="cuda") -> list:
                                 requests, device=device,
                                 after_setup=planted)
     finally:
-        TI.refine_on_device = on_device
+        refine.refine_on_device = on_device
     own = rows[0]
     own.pop("ef")
     return out + [dict(probes=None, **own)]

@@ -1156,7 +1156,7 @@ def churn_phases(index, vecs) -> dict:
     # update: surviving rows move by the generator's own noise
     live = np.flatnonzero(st.active.cpu().numpy())
     upd = np.sort(rng.choice(live, N_CHURN, replace=False)).astype(np.int32)
-    moved = (impl._rows(upd)
+    moved = (impl._mirror.rows(upd)
              + 0.03 * rng.standard_normal((N_CHURN, D)).astype(np.float32))
     ids_before = index.ids()
     inner = resolve_quality(impl.params.remove_quality, N_CHURN, index.count)
@@ -1430,7 +1430,7 @@ def refsnap_phase(index, gt: np.ndarray) -> dict:
     import hnswindex_torch
 
     impl = index._impl
-    sub_q = impl._rows(np.arange(NQ_SMALL))
+    sub_q = impl._mirror.rows(np.arange(NQ_SMALL))
     p = impl.params
     p.pack_queries, p.min_nn = "auto", hnswindex_torch.HNSWParameters().min_nn
     live = recall_at_10(impl.knn_query(sub_q, 10)[0], gt)
@@ -1720,7 +1720,7 @@ def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
     if not np.array_equal(six.ids(), ids_before) or \
             six.count != n - N_SHARD_REMOVE:
         fail("sharded update: the gids or the count changed")
-    if not np.array_equal(six._rows_global(upd), moved):
+    if not np.array_equal(six._mirror.rows(upd), moved):
         fail("sharded update: the stored vectors are not the new ones")
     keep = six.params.min_nn
     six.params.min_nn = 64

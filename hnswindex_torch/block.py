@@ -41,10 +41,9 @@ from .ops import distance as dst
 from .ops.block_scores import block_scores
 from .params import HNSWParameters
 from .utils.profiling import phase
+from .utils.refine import in_batches, refine_pairs
 
 _ASSIGN_CHUNK = 8192
-#: queries scored per launch by ``BlockIndex.knn_query`` (bounds the panel)
-QUERY_BATCH = 1024
 
 
 def _kmeans_device(vecs: torch.Tensor, cents0: torch.Tensor, iters: int,
@@ -779,19 +778,16 @@ class BlockIndex:
         q = np.ascontiguousarray(np.asarray(queries, np.float32))
         if q.ndim == 1:
             q = q[None]
-        out_ids = np.empty((q.shape[0], k), np.int32)
-        out_d = np.empty((q.shape[0], k), np.float32)
-        for i in range(0, q.shape[0], QUERY_BATCH):
-            qb = q[i:i + QUERY_BATCH]
-            _, ids = self.query_device(self._to_dev(qb), k, n_probe)
-            out_ids[i:i + QUERY_BATCH], out_d[i:i + QUERY_BATCH] = \
-                self._refine(qb, ids.cpu().numpy(), k)
-        return out_ids, out_d
+
+        def step(i, j):
+            _, ids = self.query_device(self._to_dev(q[i:j]), k, n_probe)
+            return self._refine(q[i:j], ids.cpu().numpy(), k)
+
+        return in_batches(q.shape[0], k, step)
 
     def _refine(self, q: np.ndarray, ids: np.ndarray, k: int):
         """Recompute returned distances in float64 and re-sort (the
         ranking panel may be computed at reduced precision)."""
-        from .utils.refine import refine_pairs
         pos = self._id_to_pos
         rows = pos[np.clip(ids, 0, pos.size - 1)]
         rows = np.clip(rows, 0, self._h_vecs.size // self.dim - 1)

@@ -26,16 +26,10 @@ from ..ops import distance as dst
 from ..ops.accept_scan import accept_scan
 
 
-def _accept_scan(conflict: torch.Tensor) -> torch.Tensor:
-    """Exact sequential accept over sorted candidate columns:
-    ``conflict[b, s, c]`` says earlier candidate s blocks c if s is
-    accepted.  Column c is accepted iff no accepted s < c conflicts."""
-    return _accept_cols(conflict.transpose(1, 2).contiguous())
-
-
 def _accept_cols(by_col: torch.Tensor) -> torch.Tensor:
-    """_accept_scan on the conflict tensor laid out by column:
-    ``by_col[b, c, s]``."""
+    """Exact sequential accept over sorted candidate columns:
+    ``by_col[b, c, s]`` says earlier candidate s blocks c if s is
+    accepted.  Column c is accepted iff no accepted s < c conflicts."""
     B, N, _ = by_col.shape
     acc = torch.zeros((B, N), dtype=torch.bool, device=by_col.device)
     for c in range(N):

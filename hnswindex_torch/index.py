@@ -52,7 +52,7 @@ from .ops import bruteforce as BF
 from .ops import distance as dst
 from .params import HNSWParameters
 from .utils.profiling import PhaseTimer
-from .utils.refine import refine_on_device, refine_pairs
+from .utils.refine import QUERY_BATCH, HostMirror, direct64, in_batches
 
 
 def resolve_rank_dtype(pref: str) -> str:
@@ -87,8 +87,6 @@ def resolve_pack_dtype(params, capacity: int, k: int, dim: int):
 WAVE_BUCKETS = (8, 64, 512, 4096)
 #: most level>=1 members in one wave (the reference's upper-lane ladder top)
 MAX_UPPER = 512
-#: queries per search launch
-QUERY_BATCH = 1024
 #: lane count of the exact query's lane-min scan.  At the reference's
 #: 1,024 lanes a clustered corpus (clusters of ~500 rows) loses ~1.7% of
 #: its true top-10 to a cluster mate that shares the lane and ranks below
@@ -105,8 +103,6 @@ RANGE_SEED_EF = 16
 SCAN_FLOOR = 1 << 20
 #: minimum capacity of the upper-node panel
 _PANEL_MIN_CAP = 1 << 16
-#: host-mirror budget: below it results refine in float64 on the host
-MIRROR_MAX_BYTES = 1 << 31
 #: capacity alignment above which capacity grows in 8192-row steps
 _CAP_ALIGN = 8192
 
@@ -348,7 +344,7 @@ class HNSWIndex:
         self._pack = None            # lazily built QueryPack
         self._pack_refusal = ""      # why _get_pack last returned None
         self._block_fb = None        # lazily built DeviceBlockTables
-        self._host_vectors: Optional[np.ndarray] = None
+        self._mirror = HostMirror(metric, self._vector_tables)
         # upper-node panel: ids of every live node with level >= 1, in
         # insertion order, with -1 holes where removed ids were; a count
         # of -1 marks a panel to rebuild from the state (after a load)
@@ -368,10 +364,14 @@ class HNSWIndex:
     # construction
     # ------------------------------------------------------------------
 
+    def _vector_tables(self) -> List[torch.Tensor]:
+        # a bound method, so that a deep copy's mirror reads the copy
+        return [self._state.vectors]
+
     def _invalidate_caches(self) -> None:
         self._pack = None
         self._block_fb = None
-        self._host_vectors = None
+        self._mirror.clear()
 
     def _grow_to(self, needed: int) -> None:
         C = self._state.capacity
@@ -601,15 +601,6 @@ class HNSWIndex:
     # queries
     # ------------------------------------------------------------------
 
-    def _mirrorable(self) -> bool:
-        return self._state.capacity * self.dim * 4 <= MIRROR_MAX_BYTES
-
-    def _host_vecs(self) -> np.ndarray:
-        """Host mirror of the stored vectors (cached until a mutation)."""
-        if self._host_vectors is None:
-            self._host_vectors = self._state.vectors.cpu().numpy()
-        return self._host_vectors
-
     def _get_pack(self) -> Optional[PK.QueryPack]:
         """The packed-neighbourhood tables, built on first use.  None means
         "serve unpacked", and ``_pack_refusal`` says why: "disabled"
@@ -721,20 +712,17 @@ class HNSWIndex:
         batch is the region ``block_query`` (route and score), then
         ``block_refine``."""
         from .block import device_block_query
-        n = q.shape[0]
         n_probe = fallback_probes(fb.n_blocks)
-        out_ids = np.empty((n, k), np.int32)
-        out_d = np.empty((n, k), np.float32)
-        for i in range(0, n, QUERY_BATCH):
-            j = min(n, i + QUERY_BATCH)
+
+        def step(i, j):
             with self.timer.phase("block_query"):
                 qt = torch.as_tensor(q[i:j]).to(self.device)
                 _, ids = device_block_query(self.metric, fb, qt, k, n_probe,
                                             timer=self.timer)
             with self.timer.phase("block_refine"):
-                out_ids[i:j], out_d[i:j] = self._refine(
-                    q[i:j], ids.cpu().numpy(), k)
-        return out_ids, out_d
+                return self._mirror.refine(q[i:j], ids.cpu().numpy(), k)
+
+        return in_batches(q.shape[0], k, step)
 
     def _build_filter_mask(self, filter_fnc) -> Optional[torch.Tensor]:
         """(C,) bool device mask from an id list or a (C,) bool array
@@ -748,36 +736,6 @@ class HNSWIndex:
             mask = np.zeros(C, dtype=bool)
             mask[np.asarray(filter_fnc, dtype=np.int64)] = True
         return torch.as_tensor(mask).to(self.device)
-
-    def _rows(self, ids) -> np.ndarray:
-        """Stored vectors of a (small) id set: the host mirror when it is
-        affordable, a device gather otherwise."""
-        idc = np.clip(np.asarray(ids, np.int64), 0, self._state.capacity - 1)
-        if self._mirrorable():
-            return self._host_vecs()[idc]
-        return self._state.vectors[torch.as_tensor(idc).to(
-            self.device)].cpu().numpy()
-
-    def _refine_batched(self, q: np.ndarray, ids: np.ndarray, k: int
-                        ) -> Tuple[np.ndarray, np.ndarray]:
-        n = q.shape[0]
-        out_ids = np.empty((n, k), np.int32)
-        out_d = np.empty((n, k), np.float32)
-        for i in range(0, n, QUERY_BATCH):
-            j = min(n, i + QUERY_BATCH)
-            out_ids[i:j], out_d[i:j] = self._refine(q[i:j], ids[i:j], k)
-        return out_ids, out_d
-
-    def _refine(self, q: np.ndarray, ids: np.ndarray, k: int
-                ) -> Tuple[np.ndarray, np.ndarray]:
-        """Recompute returned distances with the direct formula and re-sort:
-        float64 on the host while the corpus mirror is affordable,
-        direct-f32 on the device beyond."""
-        if self._mirrorable():
-            idc = np.clip(ids, 0, self._state.capacity - 1)
-            return refine_pairs(self.metric, q, ids, self._host_vecs()[idc],
-                                k)
-        return refine_on_device(self.metric, self._state.vectors, q, ids, k)
 
     def knn_query(self, queries, k: int, filter_fnc=None, layer: int = 0,
                   exact: bool = False) -> Tuple[np.ndarray, np.ndarray]:
@@ -801,15 +759,15 @@ class HNSWIndex:
                     "exact=True requires a dot-decomposable built-in "
                     f"metric; custom metric {self.metric!r} is served by "
                     "the graph path")
-            return self._refine_batched(
+            return self._mirror.refine_batched(
                 q, self._exact_ids(q, k, layer, fmask), k)
         ef = max(self.params.min_nn, k)          # HNSWIndex.cs:115
         if layer == 0 and fmask is None:
             fb = self._get_block_fallback()
             if fb is not None:
                 return self._block_fallback_query(fb, q, k)
-        return self._refine_batched(q, self._search_ids(q, ef, layer, fmask),
-                                    k)
+        return self._mirror.refine_batched(
+            q, self._search_ids(q, ef, layer, fmask), k)
 
     def _search_ids(self, q: np.ndarray, ef: int, layer: int = 0,
                     fmask: Optional[torch.Tensor] = None) -> np.ndarray:
@@ -847,7 +805,7 @@ class HNSWIndex:
             search=lambda sub, ef: self._search_ids(sub, ef, layer),
             exact_scan=lambda sub, kk: self._exact_ids(
                 sub, kk, layer, None, scan2_max=256),
-            rows=self._rows, refine=self._refine)
+            rows=self._mirror.rows, refine=self._mirror.refine)
 
     def _exact_ids(self, q: np.ndarray, k: int, layer: int,
                    fmask: Optional[torch.Tensor],
@@ -886,7 +844,7 @@ class HNSWIndex:
         from .results import KNNResult
         ids, dists = self.knn_query(query, k, filter_fnc=filter_fnc,
                                     layer=layer)
-        labels = self._rows(np.clip(ids[0], 0, None))
+        labels = self._mirror.rows(np.clip(ids[0], 0, None))
         out = []
         for j, (i, d) in enumerate(zip(ids[0], dists[0])):
             if i < 0:
@@ -957,16 +915,16 @@ class HNSWIndex:
                     continue
                 row = ids_np[r]
                 row = row[row >= 0]
-                rid, rd = self._refine(q[t:t + 1],
-                                       row[None, :] if row.size else
-                                       np.full((1, 1), -1, np.int32),
-                                       max(row.size, 1))
+                rid, rd = self._mirror.refine(
+                    q[t:t + 1],
+                    row[None, :] if row.size else
+                    np.full((1, 1), -1, np.int32), max(row.size, 1))
                 keep = (rid[0] >= 0) & (rd[0] <= radius)
                 ids_out[t], d_out[t] = rid[0][keep], rd[0][keep]
         if pred is not None:
             all_ids = np.unique(np.concatenate(
                 [x for x in ids_out if len(x)] or [np.empty(0, np.int32)]))
-            rows = self._rows(all_ids) if all_ids.size else \
+            rows = self._mirror.rows(all_ids) if all_ids.size else \
                 np.empty((0, self.dim), np.float32)
             ok = {int(x): bool(pred(v)) for x, v in zip(all_ids, rows)}
             for i in range(n):
@@ -995,7 +953,7 @@ class HNSWIndex:
             order = np.argsort(d[hit], kind="stable")
             return (hit[order].astype(np.int32),
                     d[hit][order].astype(np.float32))
-        if not self._mirrorable():
+        if not self._mirror.mirrorable():
             d = BF.range_distances(
                 self.metric, st.vectors, st.norms, allowed,
                 torch.as_tensor(q1).to(self.device),
@@ -1004,18 +962,8 @@ class HNSWIndex:
             order = np.argsort(d[hit], kind="stable")
             return (hit[order].astype(np.int32),
                     d[hit][order].astype(np.float32))
-        hv = self._host_vecs().astype(np.float64)
-        qq = q1.astype(np.float64)
-        if self.metric == "sq_euclid":
-            d = ((hv - qq) ** 2).sum(1)
-        else:
-            dot = hv @ qq
-            if self.metric == "cosine":
-                denom = np.linalg.norm(qq) * np.linalg.norm(hv, axis=1)
-                d = np.where(denom > 0, 1.0 - dot / np.where(
-                    denom > 0, denom, 1.0), 1.0)
-            else:
-                d = 1.0 - dot
+        d = direct64(self.metric, q1.astype(np.float64)[None],
+                     self._mirror.host().astype(np.float64))
         d = np.where(allowed.cpu().numpy(), d, np.inf)
         hit = np.flatnonzero(d <= radius)
         order = np.argsort(d[hit], kind="stable")
@@ -1057,7 +1005,7 @@ class HNSWIndex:
             _, ids = SR.beam_search(self._cfg, st, qt, qn,
                                     torch.tensor([ep], device=dev), ok,
                                     layer, k, max_iters)
-            rid, rd = self._refine(q, ids.cpu().numpy(), k)
+            rid, rd = self._mirror.refine(q, ids.cpu().numpy(), k)
             valid = rid[0] >= 0
             ep = int(rid[0][0]) if valid.any() else ep
             result[layer] = (rid[0][valid][1:], rd[0][valid][1:])
@@ -1213,7 +1161,7 @@ class HNSWIndex:
         degu = st.degu.cpu().numpy()
         lvl = st.level.cpu().numpy()
         act = st.active.cpu().numpy()
-        vec = self._host_vecs()
+        vec = self._mirror.host()
         length = self._length
         freed = set(self._free)
         with_in = self.params.allow_removals

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled with
 ``nvcc`` into its own shared library at first use, then loaded with
-``ctypes``.  Nothing is compiled when a module is imported: the CPU paths
+``ctypes``, which gets the entry point's signature (``SIGNATURES``) once,
+at load.  Nothing is compiled when a module is imported: the CPU paths
 never need ``nvcc``.  Libraries land in ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), named by a hash of the source and
 flags so an edited kernel is rebuilt.
@@ -25,6 +26,14 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC"]
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: name -> (C entry point, its argument types); every entry point returns
+#: an ``int`` error code
+SIGNATURES = {
+    "fused_scan": ("hnsw_lane_min_scan", [_P] * 9 + [_I] * 5 + [_P]),
+    "block_scores": ("hnsw_block_scores", [_P] * 8 + [_I] * 10 + [_P]),
+    "accept_scan": ("hnsw_accept_scan", [_P] * 4 + [_I] * 3 + [_P]),
+}
 #: name -> loaded ctypes library, per process
 _LIBS: dict = {}
 #: name -> seconds its last build took (0.0 when the library was cached)
@@ -63,6 +72,9 @@ def library(name: str) -> ctypes.CDLL:
         os.replace(tmp, out)
     build_seconds[name] = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
+    entry, argtypes = SIGNATURES[name]
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
     _LIBS[name] = lib
     return lib
 

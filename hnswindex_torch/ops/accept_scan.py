@@ -12,8 +12,6 @@ any other: its plain twin, which the CPU path runs, is
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 
@@ -41,9 +39,6 @@ def accept_scan(pd: torch.Tensor, sd: torch.Tensor, svalid: torch.Tensor,
     if svalid.dtype != torch.bool:
         raise TypeError("accept_scan: svalid must be bool")
     fn = _cuda.library("accept_scan").hnsw_accept_scan
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     # the C entry point launches on the runtime's current device
     with torch.cuda.device(pd.device):
         out = torch.empty((B, N), dtype=torch.bool, device=pd.device)

@@ -29,8 +29,6 @@ kernel's segment offsets, with no host synchronisation).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import distance as dst
@@ -150,11 +148,7 @@ def _launch(metric, blk_vecs, bids, q, timer):
     if _smem_bytes(BS, D, elem, rb, qt) > _SMEM_LIMIT:
         raise ValueError(f"block_scores: D={D} needs more shared memory than "
                          f"a block of the card has")
-    lib = _cuda.library("block_scores")
-    fn = lib.hnsw_block_scores
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _cuda.library("block_scores").hnsw_block_scores
     dev = blk_vecs.device
     # the C entry point launches on the runtime's current device
     with torch.cuda.device(dev):

@@ -26,8 +26,6 @@ split order.  ``merge_lane_min_partials`` is that merge's plain version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 BIG = 3.0e38
@@ -146,11 +144,7 @@ def _launch(coarse, mult, bias, q, exclude, BS: int):
         raise TypeError("lane_min_scan: mult and bias must be float32")
     if exclude.dtype != torch.int32:
         raise TypeError("lane_min_scan: exclude must be int32")
-    lib = _cuda.library("fused_scan")
-    fn = lib.hnsw_lane_min_scan
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _cuda.library("fused_scan").hnsw_lane_min_scan
     dev = coarse.device
     S = _split_count(
         B, BS, C, torch.cuda.get_device_properties(dev).multi_processor_count)

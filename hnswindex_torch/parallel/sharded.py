@@ -57,16 +57,15 @@ from ..core import remove as RM
 from ..core import search as SR
 from ..core import stats as ST
 from ..core.snapshot import npz_path
-from ..index import (EXACT_LANES, MAX_UPPER, MIRROR_MAX_BYTES, QUERY_BATCH,
-                     RANGE_POOLS, WAVE_BUCKETS, _alloc_capacity, _as_2d_f32,
-                     _bucket, _check_full_f32, _next_pow2, callable_knn,
-                     insert_wave, range_pass, resolve_pack_dtype,
-                     resolve_rank_dtype)
+from ..index import (EXACT_LANES, MAX_UPPER, RANGE_POOLS, WAVE_BUCKETS,
+                     _alloc_capacity, _as_2d_f32, _bucket, _check_full_f32,
+                     _next_pow2, callable_knn, insert_wave, range_pass,
+                     resolve_pack_dtype, resolve_rank_dtype)
 from ..ops import bruteforce as BF
 from ..ops import distance as dst
 from ..params import HNSWParameters
 from ..utils.profiling import PhaseTimer
-from ..utils.refine import refine_pairs
+from ..utils.refine import QUERY_BATCH, HostMirror
 
 #: floor of the per-shard upper-panel width (the reference's)
 _SPANEL_MIN = 1024
@@ -149,7 +148,7 @@ class ShardedIndex:
         self._counts = np.zeros(S, dtype=np.int64)   # live rows a shard
         self._free: List[List[int]] = [[] for _ in range(S)]
         self._seeded = np.zeros(S, dtype=bool)
-        self._host_vectors: Optional[np.ndarray] = None
+        self._mirror = HostMirror(metric, self._vector_tables)
         self._pack = None               # per-shard QueryPacks
         #: per shard, the live level>=1 slots (the exact path's upper panel)
         self._upper_set: List[set] = [set() for _ in range(S)]
@@ -165,86 +164,13 @@ class ShardedIndex:
     # internals
     # ------------------------------------------------------------------
 
+    def _vector_tables(self) -> List[torch.Tensor]:
+        # a bound method, so that a deep copy's mirror reads the copy
+        return [st.vectors for st in self._states]
+
     def _invalidate_caches(self) -> None:
-        self._host_vectors = None
+        self._mirror.clear()
         self._pack = None
-
-    def _mirrorable(self) -> bool:
-        """Under the host-mirror budget refinement and row fetches read a
-        host copy of every shard's vectors; above it they run on the
-        devices and only (B, k) results cross to the host."""
-        return (self.n_shards * self.shard_capacity * self.dim * 4
-                <= MIRROR_MAX_BYTES)
-
-    def _host_vecs(self) -> np.ndarray:
-        """(S, C, D) host mirror of the stored vectors (cached until a
-        mutation; callers check ``_mirrorable``)."""
-        if self._host_vectors is None:
-            self._host_vectors = np.stack(
-                [st.vectors.cpu().numpy() for st in self._states])
-        return self._host_vectors
-
-    def _rows_global(self, gids) -> np.ndarray:
-        """(B, D) stored vectors of a (small) gid set: the host mirror when
-        it is affordable, a gather on each shard's device otherwise."""
-        S, C = self.n_shards, self.shard_capacity
-        g = np.clip(np.asarray(gids, np.int64).ravel(), 0, S * C - 1)
-        if self._mirrorable():
-            return self._host_vecs()[g % S, g // S]
-        out = np.zeros((g.size, self.dim), np.float32)
-        for s, st in enumerate(self._states):
-            own = np.flatnonzero(g % S == s)
-            if own.size:
-                lid = torch.as_tensor(g[own] // S).to(st.device)
-                out[own] = st.vectors[lid].cpu().numpy()
-        return out
-
-    def _refine_global(self, q: np.ndarray, gids: np.ndarray, k: int
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-        """Re-rank candidate gids with the direct metric formula: float64
-        against the host mirror under the budget, direct float32 on the
-        devices above it (each shard scores the lanes it owns, the first
-        device sums them and sorts)."""
-        S, C = self.n_shards, self.shard_capacity
-        gids = np.asarray(gids)
-        if self._mirrorable():
-            g = np.clip(gids, 0, S * C - 1)
-            return refine_pairs(self.metric, q, gids,
-                                self._host_vecs()[g % S, g // S], k)
-        d0 = self.devices[0]
-        gt = torch.as_tensor(gids.astype(np.int64))
-        total = torch.zeros(gt.shape, dtype=torch.float32, device=d0)
-        owned = torch.zeros(gt.shape, dtype=torch.bool, device=d0)
-        for s, st in enumerate(self._states):
-            g = gt.to(st.device)
-            own = (g >= 0) & (g % S == s)
-            vv = st.vectors[(g // S).clamp(0, C - 1)]          # (B, W, D)
-            qt = torch.as_tensor(q).to(st.device)
-            d = dst.exact(self.metric, qt[:, None, :], vv).float()
-            total += torch.where(own, d, 0.0).to(d0)
-            owned |= own.to(d0)
-        total = torch.where(owned, total, float("inf"))
-        order = torch.argsort(total, dim=1, stable=True)[:, :k]
-        out_ids = torch.gather(gt.to(d0), 1, order).cpu().numpy()
-        out_d = torch.gather(total, 1, order).cpu().numpy()
-        if out_ids.shape[1] < k:                # fewer candidates than k
-            pad = k - out_ids.shape[1]
-            out_ids = np.pad(out_ids, ((0, 0), (0, pad)), constant_values=-1)
-            out_d = np.pad(out_d, ((0, 0), (0, pad)))
-        out_ids = np.where(np.isfinite(out_d), out_ids, -1)
-        return (out_ids.astype(np.int32),
-                np.where(out_ids >= 0, out_d, np.nan).astype(np.float32))
-
-    def _refine_batched(self, q: np.ndarray, gids: np.ndarray, k: int
-                        ) -> Tuple[np.ndarray, np.ndarray]:
-        n = q.shape[0]
-        out_ids = np.empty((n, k), np.int32)
-        out_d = np.empty((n, k), np.float32)
-        for i in range(0, n, QUERY_BATCH):
-            j = min(n, i + QUERY_BATCH)
-            out_ids[i:j], out_d[i:j] = self._refine_global(q[i:j], gids[i:j],
-                                                           k)
-        return out_ids, out_d
 
     def _global_filter_mask(self, filter_fnc) -> Optional[List[torch.Tensor]]:
         """Per-shard (C,) bool masks from gids or an (S*C,) bool mask
@@ -575,7 +501,7 @@ class ShardedIndex:
         else:
             ids = self._search_ids(q, max(self.params.min_nn, k), int(layer),
                                    fmask)
-        return self._refine_batched(q, ids, k)
+        return self._mirror.refine_batched(q, ids, k)
 
     def _knn_query_callable(self, q: np.ndarray, k: int, pred, layer: int,
                             exact: bool) -> Tuple[np.ndarray, np.ndarray]:
@@ -588,7 +514,7 @@ class ShardedIndex:
             search=lambda sub, ef: self._search_ids(sub, ef, layer),
             exact_scan=lambda sub, kk: self._exact_ids(
                 sub, kk, layer, None, scan2_max=256),
-            rows=self._rows_global, refine=self._refine_global)
+            rows=self._mirror.rows, refine=self._mirror.refine)
 
     def range_query(self, queries, radius: float, filter_fnc=None,
                     layer: int = 0) -> Tuple[List[np.ndarray],
@@ -637,11 +563,11 @@ class ShardedIndex:
                     ids_out.append(np.empty(0, np.int32))
                     d_out.append(np.empty(0, np.float32))
                     continue
-                rid, rd = self._refine_global(q[qi:qi + 1], row[None, :],
+                rid, rd = self._mirror.refine(q[qi:qi + 1], row[None, :],
                                               row.size)
                 keep = (rid[0] >= 0) & (rd[0] <= radius)
                 if pred is not None:
-                    rows_v = self._rows_global(rid[0])
+                    rows_v = self._mirror.rows(rid[0])
                     keep &= np.asarray([bool(pred(v)) for v in rows_v],
                                        dtype=bool)
                 ids_out.append(rid[0][keep])
@@ -704,7 +630,7 @@ class ShardedIndex:
             gi = np.concatenate(
                 [np.where(i.cpu().numpy() >= 0, i.cpu().numpy() * S + s, -1)
                  for s, (_, i) in enumerate(parts)], axis=1)
-            rid, rd = self._refine_global(q, gi, k)
+            rid, rd = self._mirror.refine(q, gi, k)
             valid = rid[0] >= 0
             result[layer] = (rid[0][valid][1:], rd[0][valid][1:])
             # each shard chains its own best as its next entry
@@ -827,15 +753,12 @@ class ShardedIndex:
         return (sl * self.n_shards + sh).astype(np.int32)
 
     def items(self) -> np.ndarray:
-        """Active stored vectors, ordered like ``ids()``; above the mirror
-        budget gathered on the devices in chunks of 65,536 rows."""
-        sh, sl = self._active_gids()
-        if self._mirrorable():
-            return self._host_vecs()[sh, sl]
-        g = sl * self.n_shards + sh
+        """Active stored vectors, ordered like ``ids()``, fetched in chunks
+        of 65,536 rows (on the devices above the mirror budget)."""
+        g = self.ids()
         out = np.empty((g.size, self.dim), np.float32)
         for i in range(0, g.size, 1 << 16):
-            out[i:i + (1 << 16)] = self._rows_global(g[i:i + (1 << 16)])
+            out[i:i + (1 << 16)] = self._mirror.rows(g[i:i + (1 << 16)])
         return out
 
     def get_info(self) -> ST.HNSWInfo:

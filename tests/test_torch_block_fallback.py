@@ -72,12 +72,12 @@ def test_block_fallback_int8_tiles(built, monkeypatch):
 
 def test_block_fallback_unmirrored_refine(built, monkeypatch):
     """Past the host-mirror budget the panel is refined on the device."""
-    from hnswindex_torch import index as TI
+    from hnswindex_torch.utils import refine
     monkeypatch.delenv("HNSW_HBM_BYTES", raising=False)
     ix, ids, vecs = built
     base = ix.knn_query(vecs[:64], k=3)
-    monkeypatch.setattr(TI, "MIRROR_MAX_BYTES", 0)
-    assert not ix._mirrorable()
+    monkeypatch.setattr(refine, "MIRROR_MAX_BYTES", 0)
+    assert not ix._mirror.mirrorable()
     got = ix.knn_query(vecs[:64], k=3)
     np.testing.assert_array_equal(got[0], base[0])
     np.testing.assert_allclose(got[1], base[1], rtol=1e-4, atol=1e-5)
@@ -160,13 +160,13 @@ def test_block_fallback_at_gist_width_matches_the_plain_reference(
     bar, every distance against its float64 direct formula to 1e-5
     relative (the float32 refine on the device)."""
     from hnswbench import reference
-    from hnswindex_torch import index as TI
     from hnswindex_torch.utils import refine
     monkeypatch.delenv("HNSW_HBM_BYTES", raising=False)
-    monkeypatch.setattr(TI, "MIRROR_MAX_BYTES", 0)
+    monkeypatch.setattr(refine, "MIRROR_MAX_BYTES", 0)
     called = []
-    monkeypatch.setattr(TI, "refine_on_device", lambda *a: called.append(1)
-                        or refine.refine_on_device(*a))
+    on_device = refine.refine_on_device
+    monkeypatch.setattr(refine, "refine_on_device",
+                        lambda *a: called.append(1) or on_device(*a))
     ix, ids, vecs, q = gist_built
     ix._invalidate_caches()
     got, gd = ix.knn_query(q, k=10)

@@ -63,7 +63,8 @@ def test_accept_scan_is_sequential_rule():
     B, N = 16, 12
     conf = rng.random((B, N, N)) < 0.3
     conf &= np.triu(np.ones((N, N), bool), 1)[None]
-    got = TH._accept_scan(torch.from_numpy(conf)).numpy()
+    got = TH._accept_cols(
+        torch.from_numpy(conf).transpose(1, 2).contiguous()).numpy()
     for b in range(B):
         acc = []
         for c in range(N):

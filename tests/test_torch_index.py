@@ -184,7 +184,7 @@ def _remove_matches(pair):
 def _update_matches(pair):
     ti = _churned(pair, lambda i, v: i.update([0], v[:1] + 0.01))
     assert ti._free == [] and bool(ti._state.active[0])
-    np.testing.assert_array_equal(ti._rows([0])[0], pair[2][0] + 0.01)
+    np.testing.assert_array_equal(ti._mirror.rows([0])[0], pair[2][0] + 0.01)
 
 
 def _filter_matches(pair):

@@ -481,7 +481,7 @@ def test_profiler_sees_no_program_range_on_card(dev):
         collection_size=n, pack_queries="on", pack_min_count=0), device=dev)
     idx.add(vecs)
     idx.knn_query(vecs[:64], 10)                    # pack and host mirror
-    assert idx._mirrorable()
+    assert idx._mirror.mirrorable()
     _, dev_ev, host_ev = _traced(lambda: idx.knn_query(vecs[:256], 10), dev)
     assert dev_ev
     assert "hnsw/refine" in {e[2] for e in host_ev}

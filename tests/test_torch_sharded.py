@@ -48,6 +48,7 @@ import test_torch_search as TTS
 from hnswindex_torch import convert
 from hnswindex_torch.core import remove as TR
 from hnswindex_torch.parallel import sharded as TSH
+from hnswindex_torch.utils import refine
 from hnswindex_tpu.params import HNSWParameters as JParams
 from hnswindex_tpu.parallel.sharded import ShardedIndex as JSharded
 
@@ -286,15 +287,15 @@ def test_refine_above_mirror_budget(carried, monkeypatch):
     ti.params = dataclasses.replace(ti.params, pack_queries="off")
     want_ids, want_d = ti.knn_query(q, K)
     want_ex, _ = ti.knn_query(q, K, exact=True)
-    monkeypatch.setattr(TSH, "MIRROR_MAX_BYTES", 0)
+    monkeypatch.setattr(refine, "MIRROR_MAX_BYTES", 0)
     ti._invalidate_caches()
-    assert not ti._mirrorable()
+    assert not ti._mirror.mirrorable()
     got_ids, got_d = ti.knn_query(q, K)
     np.testing.assert_array_equal(got_ids, want_ids)
     np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-5)
     got_ex, _ = ti.knn_query(q, K, exact=True)
     np.testing.assert_array_equal(got_ex, want_ex)
-    rows = ti._rows_global(got_ids[:, 0])
+    rows = ti._mirror.rows(got_ids[:, 0])
     np.testing.assert_array_equal(rows, vecs_of(ti, got_ids[:, 0]))
     np.testing.assert_array_equal(ti.items(), vecs_of(ti, ti.ids()))
 
@@ -412,7 +413,7 @@ def test_growth_keeps_every_gid():
     assert ti.shard_capacity > cap0
     gids = np.concatenate(got)
     np.testing.assert_array_equal(np.sort(gids), np.arange(600))
-    np.testing.assert_array_equal(ti._rows_global(gids), vecs)
+    np.testing.assert_array_equal(ti._mirror.rows(gids), vecs)
     np.testing.assert_array_equal(ti.ids(), np.arange(600))
     assert _self_recall(ti, vecs, gids) > 0.95
 
