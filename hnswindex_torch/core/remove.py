@@ -286,7 +286,9 @@ def remove_from_state(cfg: GraphConfig, state: GraphState, arr,
     built-in metrics) or beams.  Affected rows that lost one neighbour
     repair at fan-in 1 and ``span_1``, the others at ``fanin``/``span``.
     ``timer`` (a PhaseTimer) records the phases ``mark``, ``affected``,
-    ``candidates`` and ``repair``."""
+    ``candidates`` and ``repair``, and tallies ``remove.waves`` and the
+    affected rows re-pruned at fan-in 1 (``remove.affected_one``) and at
+    the wider fan-in (``remove.affected_multi``), summed over layers."""
     arr = np.asarray(arr, dtype=np.int64).ravel()
     if arr.size == 0:
         return
@@ -321,6 +323,8 @@ def remove_from_state(cfg: GraphConfig, state: GraphState, arr,
         with phase(timer, "affected"):
             aff, multi = affected_masks_all(cfg, state, rmask)
             aff, multi = aff.cpu().numpy(), multi.cpu().numpy()
+        if timer is not None:
+            timer.count("remove.waves", 1)
         for layer in range(int(wave_lvl.max()), -1, -1):
             # only the wave members living on this layer are scanned
             on_l = wave if layer == 0 else wave[wave_lvl >= layer]
@@ -340,6 +344,9 @@ def remove_from_state(cfg: GraphConfig, state: GraphState, arr,
                 nbr_l, deg_l = nbr_slice(state, layer)
                 fast = np.flatnonzero(aff[layer] & ~multi[layer])
                 slow = np.flatnonzero(multi[layer])
+                if timer is not None:
+                    timer.count("remove.affected_one", fast.size)
+                    timer.count("remove.affected_multi", slow.size)
                 _repair_rows(cfg, state, nbr_l, deg_l, fast, rmask, rpos,
                              scand, max_deg, 1, r_span1, r_fill)
                 _repair_rows(cfg, state, nbr_l, deg_l, slow, rmask, rpos,

@@ -355,7 +355,9 @@ class HNSWIndex:
         self._upper_ids: Optional[torch.Tensor] = None
         self._scan_hwm = 0           # 1 + highest slot ever activated
         #: per-phase build times (wave, scan, prune, reverse, upper, pack,
-        #: ...) and their host self times
+        #: remove, ...), their host self times, and the tallies of the work
+        #: (``add.reused`` slots taken from the free list, ``pack.builds``,
+        #: ``remove.ids`` and ``core/remove``'s removal tallies)
         self.timer = PhaseTimer(self.device)
         #: waves inserted on each build path
         self.wave_counts = {"exact": 0, "beam": 0}
@@ -390,6 +392,7 @@ class HNSWIndex:
         if self.params.allow_removals:
             while self._free and len(slots) < n:
                 slots.append(self._free.pop())
+        self.timer.count("add.reused", len(slots))
         fresh = n - len(slots)
         if fresh:
             self._grow_to(self._length + fresh)
@@ -558,6 +561,7 @@ class HNSWIndex:
         if arr.size == 0:
             return
         self._invalidate_caches()
+        self.timer.count("remove.ids", arr.size)
         with self.timer.phase("remove"):
             RM.remove_from_state(
                 self._cfg, self._state, arr,
@@ -647,6 +651,7 @@ class HNSWIndex:
             self._pack = PK.make_query_pack(
                 self._cfg, self._state,
                 torch.as_tensor(padded).to(self.device), res_dtype)
+            self.timer.count("pack.builds", 1)
         return self._pack
 
     def _get_block_fallback(self):
