@@ -46,7 +46,8 @@ from hnswbench import faults, harness, registry  # noqa: E402
 #: the card's float32 peak (FMA pipes, not the tensor cores), FLOP/s
 F32_PEAK = 67e12
 TALLIES = ("remove.ids", "remove.waves", "remove.affected_one",
-           "remove.affected_multi", "add.reused", "pack.builds")
+           "remove.affected_multi", "remove.scan_calls", "add.reused",
+           "pack.builds")
 
 
 def _scan_flops(rm, dim: int) -> list:
@@ -55,10 +56,11 @@ def _scan_flops(rm, dim: int) -> list:
     flops = [0]
     scan = rm.exact_repair_candidates
 
-    def counted(cfg, state, scan_ids, layer, remove_ef, nscan=None):
+    def counted(cfg, state, scan_ids, layer, remove_ef, nscan=None,
+                timer=None):
         ns = state.capacity if nscan is None else min(nscan, state.capacity)
         flops[0] += 2 * int(scan_ids.shape[0]) * ns * dim
-        return scan(cfg, state, scan_ids, layer, remove_ef, nscan)
+        return scan(cfg, state, scan_ids, layer, remove_ef, nscan, timer)
 
     rm.exact_repair_candidates = counted
     return flops

@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # 1,000,000 x 128 clustered corpus
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the three CUDA kernels (hnswindex_torch/csrc/fused_scan.cu,
-   block_scores.cu and accept_scan.cu) from source, one nvcc each, started
-   together, and prints the build time.  From then on every heuristic
+2. Builds the four CUDA kernels (hnswindex_torch/csrc/fused_scan.cu,
+   block_scores.cu, accept_scan.cu and repair_scan.cu) from source, one
+   nvcc each, started together, and prints the build time.  From then on every heuristic
    prune of the run passes its accept through a probe (``K3Probe``) that
    keeps the inputs of the first prune at each (width, max_edges) of a
    phase and of the last of its largest.  Where a phase below says "K3
@@ -41,6 +41,18 @@
    this run's inputs and the H100's published peaks (K2's from the
    distinct probed tiles).  At the main float32 and bfloat16 shapes K2 is
    also timed at 32 pairs a work item instead of 16.
+   Kernel phase, repair scan (K4): the churn cell's removal scan, a wave
+   of 32,768 removed rows (whole clusters of 1,007,616 clustered rows of
+   D=100, the rest allowed) at k=100, and the wave's ~6% of level >= 1
+   against that level's rows (gathered, then cut into splits); K4 against its
+   plain twin (``exact_knn`` in 4,096-query chunks, the path it replaced)
+   with the card tests' bars (the same padding, sorted distances within
+   1e-5 relative plus 1e-6 of qn + cn, every differing id a float64
+   near-tie, at most 0.1% differing), timed beside the twin, a library
+   yardstick (``torch.addmm`` distance panel + ``torch.topk``, 2,048
+   queries a call, on the same rows; ``library_ms``, used nowhere in the
+   package) and its bound (2 S n D operations at the f32 peak, n the rows
+   scanned).
 4. Main path: ``hnswindex_torch.Index(128, "sq_euclid", device="cuda")``
    with ``set_collection_size`` and ``add`` on the bench's clustered corpus
    (seed 65537, M=16, efConstruction=100, max_wave_size=512); prints
@@ -104,15 +116,16 @@
    entry point active, no live row's edge into a removed row at any layer
    (checked on the card), no removed id among 10,000 queries' answers, and
    post/pre recall@10 of 1,000 surviving rows >= 0.98; K3 checked and
-   timed at the repair's widths.  Then 10,000 fresh
+   timed at the repair's widths; K4 launched (> 0: the capacity is under
+   2^20, so the candidate scan is K4).  Then 10,000 fresh
    rows are added (ids = the freed slots, last freed first; recall@1 on
    themselves >= 0.90; lane-min launches > 0; K3 checked) and 10,000
    surviving rows
    updated by the generator's noise (sigma 0.03; ids and count unchanged,
    ``items()`` shows the new vectors, recall@1 by the new vectors >= 0.85
    at ef 64 and printed at the default ef and at 256: the moved rows sit
-   on their clusters' rims; lane-min launches > 0; K3 checked), and packed
-   recall@10 of the live rows must stay >= 0.90.
+   on their clusters' rims; lane-min and K4 launches > 0; K3 checked), and
+   packed recall@10 of the live rows must stay >= 0.90.
 10. ``BlockIndex(router="hnsw")`` on the same corpus: routed by a graph
     over the centroids, ``knn_query(k=10, n_probe=32)`` on the 10,000 rows
     (q/s beside the exact router's), recall@10 >= 0.90; after adding and
@@ -166,7 +179,8 @@
     into a removed slot on either shard, no removed gid returned, post/pre
     recall@10 of 1,000 surviving rows >= 0.98; ``update`` of 5,000 rows
     (gids and count unchanged, the stored vectors the new ones, recall@1
-    by the new vectors >= 0.85 at ef 64); K3 checked in both.  ``get_info``
+    by the new vectors >= 0.85 at ef 64); K3 checked and K4 launched in
+    both.  ``get_info``
     (layer 0 holds
     every live row) and component counts (two at layer 0, one a shard),
     then a ``.npz`` round trip onto the same devices whose 1,000 answers
@@ -182,7 +196,8 @@
     beside its bound; then 10,000 rows added (they
     find themselves) and 10,000 removed (they never come back).
 
-The ``kernels`` line reports K1, K2 and K3 (K3's launches by phase).
+The ``kernels`` line reports K1, K2, K3 and K4 (K3's and K4's launches by
+phase).
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 non-zero before it.  Without a CUDA device the script exits non-zero and
 prints no result.
@@ -220,6 +235,9 @@ NQ_SMALL = 1_000            # queries of the layer-1, range and k=300 phases
 N_SHARD_REMOVE = 50_000     # gids the sharded removal takes
 N_SHARD_UPDATE = 5_000      # rows the sharded update moves
 K3_REPS = 200               # launches a timing of K3 averages over
+# the removal's repair scan (K4) at the churn cell's shape: a wave of
+# removed rows, the scan prefix of 1M rows' capacity, D, remove_ef
+K4_S, K4_NS, K4_D, K4_K = 32_768, FULL_C, 100, 100
 # published peaks of one H100 SXM: bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -462,6 +480,141 @@ def kernel_phases() -> dict:
     out["ragged_wave"] = kernel_phase(RAGGED_C, B=300)
     out["odd_depth"] = kernel_phase(200_003, d=100)
     out["duplicate_rows"] = kernel_phase(200_003, dup=True, timed=False)
+    return out
+
+
+def k4_case(upper: bool):
+    """The churn cell's removal scan: K4_NS clustered rows of K4_D (500 a
+    cluster, noise 0.03), whole clusters taken out until K4_S rows are
+    (the wave: inactive, and the queries), the rest allowed; with
+    ``upper`` only the ~6% of level >= 1 of the rest, and the wave's
+    members at that level as the queries."""
+    import torch
+    from hnswindex_torch.ops import distance as dst
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n_c = K4_NS // 500
+    centres = torch.rand((n_c, K4_D), generator=g, device=dev)
+    lab = torch.randint(0, n_c, (K4_NS,), generator=g, device=dev)
+    x = centres[lab] + 0.03 * torch.randn((K4_NS, K4_D), generator=g,
+                                          device=dev)
+    size = torch.bincount(lab, minlength=n_c)
+    order = torch.randperm(n_c, generator=g, device=dev)
+    take = order[:int((torch.cumsum(size[order], 0) < K4_S).sum()) + 1]
+    wave = torch.isin(lab, take).nonzero()[:, 0][:K4_S]
+    allowed = torch.ones(K4_NS, dtype=torch.bool, device=dev)
+    allowed[wave] = False
+    if upper:
+        high = torch.rand((K4_NS,), generator=g, device=dev) < 0.06
+        allowed &= high
+        wave = wave[high[wave]]
+    return x, dst.norm_data("sq_euclid", x), allowed, x[wave].contiguous()
+
+
+def k4_compare(name: str, x, norms, allowed, q, kd, ki, td, ti) -> dict:
+    """K4 against its twin with the card tests' bars: the same -1 / +inf
+    padding, sorted distances within 1e-5 relative plus 1e-6 of qn + cn,
+    each differing id a float64 near-tie (within twice that) of the twin's,
+    and at most 0.1% of ids differing."""
+    import torch
+    from hnswindex_torch.ops import distance as dst
+
+    fin = torch.isfinite(td)
+    if not torch.equal(torch.isfinite(kd), fin) or \
+            not bool((ki[~fin] == -1).all()):
+        fail(f"K4 pads differ from the twin's at {name}")
+    scale = dst.norm_data("sq_euclid", q)[:, None] + norms[ti.clamp(min=0)]
+    tol = 1e-5 * td.abs() + 1e-6 * scale
+    err = (kd - td).abs()
+    if bool((err > tol)[fin].any()):
+        fail(f"K4 distances off at {name}: max abs err "
+             f"{err[fin].max().item()}")
+    diff = (ki != ti) & fin
+    r, c = diff.nonzero(as_tuple=True)
+    if r.numel():
+        qd = q[r].double()
+        dk = ((qd - x[ki[r, c]].double()) ** 2).sum(-1)
+        dt = ((qd - x[ti[r, c]].double()) ** 2).sum(-1)
+        if bool(((dk - dt).abs() > 2 * tol[r, c]).any()):
+            fail(f"K4 picks an id the twin's order does not tie at {name}")
+    agree = 1.0 - diff.float().mean().item()
+    if agree < 0.999:
+        fail(f"K4 ids agree on {agree} of entries at {name}")
+    return dict(max_abs_err=err[fin].max().item() if bool(fin.any())
+                else 0.0, id_agree=agree, ids_differing=int(r.numel()))
+
+
+def k4_phase() -> dict:
+    """K4 (``ops/repair_scan``) at the churn cell's removal shape (layer 0
+    and its level >= 1 members), against the twin (``repair_scan_ref``:
+    ``exact_knn`` in 4,096-query chunks, the path it replaced), timed with
+    CUDA events beside the twin, a library yardstick (``torch.addmm`` of
+    the distance panel and ``torch.topk``, 2,048 queries a call; used
+    nowhere in the package, on the same rows) and its bound (2 S n D
+    operations at the f32 peak, n the rows scanned: the whole prefix at
+    layer 0, the gathered allowed rows above it; each input read once, the
+    ids and distances written once)."""
+    import ctypes
+
+    import torch
+    from hnswindex_torch.ops import _cuda
+    from hnswindex_torch.ops import repair_scan as RS
+
+    out = {}
+    for upper in (False, True):
+        x, norms, allowed, q = k4_case(upper)
+        S = q.shape[0]
+        name = (f"S={S} ns={K4_NS} D={K4_D} k={K4_K}"
+                + (" level >= 1" if upper else ""))
+        n0 = RS.repair_scan.calls
+        kd, ki = RS.repair_scan("sq_euclid", x, norms, allowed, q, K4_K)
+        torch.cuda.synchronize()
+        if RS.repair_scan.calls != n0 + 1:
+            fail(f"K4 did not count its launch at {name}")
+        td, ti = RS.repair_scan_ref("sq_euclid", x, norms, allowed, q, K4_K)
+        res = k4_compare(name, x, norms, allowed, q, kd, ki, td, ti)
+        del td, ti
+        ms = time_ms(lambda: RS.repair_scan("sq_euclid", x, norms, allowed,
+                                            q, K4_K), 3)
+        plain_ms = time_ms(lambda: RS.repair_scan_ref(
+            "sq_euclid", x, norms, allowed, q, K4_K), 1)
+        # the yardstick scans the same rows: the gathered ones above layer 0
+        xl, cb = ((x[allowed], norms[allowed]) if upper else
+                  (x, torch.where(allowed, norms, float("inf"))))
+
+        def library():
+            for s0 in range(0, S, 2048):
+                torch.topk(torch.addmm(cb, q[s0:s0 + 2048], xl.T,
+                                       alpha=-2.0),
+                           K4_K, dim=1, largest=False)
+
+        library_ms = time_ms(library, 1)
+        # the rows the scan needs: all of the prefix at layer 0, the
+        # gathered allowed rows above it
+        n_rows = int(allowed.sum()) if upper else K4_NS
+        flops = 2.0 * S * n_rows * K4_D
+        nbytes = (n_rows + q.numel() // K4_D) * K4_D * 4 + n_rows * 5 \
+            + S * K4_K * (4 + 8)
+        P, rows = ctypes.c_int(), ctypes.c_int()
+        _cuda.check(_cuda.library("repair_scan").hnsw_repair_scan_plan(
+            S, n_rows, K4_K, ctypes.byref(P), ctypes.byref(rows)), "plan")
+        P = P.value
+        res.update(S=S, ns=K4_NS, rows_scanned=n_rows, D=K4_D, k=K4_K,
+                   splits=P, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   tflops=flops / ms / 1e9, **bound(flops, PEAK_F32, nbytes))
+        res["bound_share"] = res["bound_ms"] / ms
+        print(f"kernel phase K4 {name}: {n_rows} rows scanned, {P} "
+              f"split(s), max_abs_err="
+              f"{res['max_abs_err']:.3e} id_agree={res['id_agree']:.6f}; "
+              f"kernel {ms:.2f} ms plain {plain_ms:.2f} ms library "
+              f"{library_ms:.2f} ms bound {res['bound_ms']:.2f} ms "
+              f"({res['bound_by']}); achieved {res['tflops']:.1f} TFLOP/s, "
+              f"{res['bound_share']:.3f} of the bound", flush=True)
+        out["upper" if upper else "wave"] = res
+        del x, norms, allowed, q, kd, ki, cb, xl
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1084,6 +1237,7 @@ def churn_phases(index, vecs) -> dict:
     import torch
     from hnswindex_torch.core.remove import resolve_quality
     from hnswindex_torch.ops import fused_scan as FS
+    from hnswindex_torch.ops import repair_scan as RS
 
     impl = index._impl
     n = vecs.shape[0]
@@ -1099,17 +1253,23 @@ def churn_phases(index, vecs) -> dict:
 
     before = impl.timer.seconds()
     K3.start()
+    k4_0 = RS.repair_scan.calls
     (_, s) = timed_query(lambda: index.remove(drop))
+    k4 = RS.repair_scan.calls - k4_0
     after = impl.timer.seconds()
     split = {k: after.get(k, 0.0) - before.get(k, 0.0)
              for k in ("mark", "affected", "candidates", "repair")}
     st = impl._state
     print(f"removal: {N_REMOVE} ids (the entry point {ep} among them) in "
           f"{s:.2f} s = {N_REMOVE / s:.1f} removals/s; phases "
-          + " ".join(f"{k}={v:.2f}s" for k, v in split.items()), flush=True)
+          + " ".join(f"{k}={v:.2f}s" for k, v in split.items())
+          + f"; K4 launches {k4}", flush=True)
     k3 = K3.finish("the removal", timed=True)
     if k3["launches"] <= 0:
         fail("removal: the repair never launched K3")
+    if k4 <= 0:
+        fail("removal: the candidate scan never launched K4 (capacity "
+             f"{st.capacity} is below 2^20)")
     if index.count != n - N_REMOVE or int(st.count) != n - N_REMOVE:
         fail(f"removal: count {index.count} != {n - N_REMOVE}")
     new_ep = int(st.ep)
@@ -1130,7 +1290,7 @@ def churn_phases(index, vecs) -> dict:
         fail(f"removal: post/pre recall ratio {ratio} < 0.98")
     out = dict(removed=N_REMOVE, seconds=s, removals_per_s=N_REMOVE / s,
                phases_s=split, recall_pre=pre, recall_post=post,
-               ratio=ratio, entry_point=new_ep, k3=k3)
+               ratio=ratio, entry_point=new_ep, k3=k3, k4_launches=k4)
 
     # re-add: fresh rows take the freed slots, last freed first
     fresh = (vecs[rng.choice(n, N_CHURN, replace=False)]
@@ -1162,8 +1322,10 @@ def churn_phases(index, vecs) -> dict:
     inner = resolve_quality(impl.params.remove_quality, N_CHURN, index.count)
     FS.lane_min_scan.launches = 0
     K3.start()
+    k4_0 = RS.repair_scan.calls
     _, s = timed_query(lambda: impl.update(upd, moved))
     launches = FS.lane_min_scan.launches
+    k4 = RS.repair_scan.calls - k4_0
     k3 = K3.finish("the update")
     if not np.array_equal(index.ids(), ids_before) or \
             index.count != n - N_REMOVE + N_CHURN:
@@ -1188,12 +1350,14 @@ def churn_phases(index, vecs) -> dict:
     print(f"update: {N_CHURN} rows in {s:.2f} s = {N_CHURN / s:.1f} rows/s "
           f"(inner removal \"{inner}\"); recall@1 by the new vectors "
           + ", ".join(f"{v:.4f} at min_nn={k}" for k, v in rec1.items())
-          + f"; lane_min_scan launches {launches}", flush=True)
-    if rec1[64] < 0.85 or launches <= 0 or k3["launches"] <= 0:
-        fail(f"update: recall@1 {rec1[64]} at min_nn=64 or no lane-min "
-             "or K3 launch")
+          + f"; lane_min_scan launches {launches}, K4 launches {k4}",
+          flush=True)
+    if rec1[64] < 0.85 or launches <= 0 or k3["launches"] <= 0 or k4 <= 0:
+        fail(f"update: recall@1 {rec1[64]} at min_nn=64 or no lane-min, "
+             "K3 or K4 launch")
     out["update"] = dict(rows_per_s=N_CHURN / s, recall_at_1=rec1,
-                         launches=launches, inner_quality=inner, k3=k3)
+                         launches=launches, inner_quality=inner, k3=k3,
+                         k4_launches=k4)
 
     rec = live_recall(index, vecs[probe])
     print(f"after the churn: packed recall@10 of {NQ_SMALL} live rows "
@@ -1666,6 +1830,7 @@ def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
     into a removed slot, post/pre recall ratio >= 0.98), then ``update`` of
     N_SHARD_UPDATE surviving rows."""
     import torch
+    from hnswindex_torch.ops import repair_scan as RS
 
     n = vecs.shape[0]
     rng = np.random.default_rng(SEED + 11)
@@ -1682,7 +1847,9 @@ def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
     pre = live_rec()
     before = [t.seconds() for t in six.timers]
     K3.start()
+    k4_0 = RS.repair_scan.calls
     _, s = timed_query(lambda: six.remove(drop))
+    k4 = RS.repair_scan.calls - k4_0
     k3 = K3.finish("the sharded removal")
     split = {k: sum(t.seconds().get(k, 0.0) - b.get(k, 0.0)
                     for t, b in zip(six.timers, before))
@@ -1702,12 +1869,13 @@ def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
           f"{N_SHARD_REMOVE / s:.1f} removals/s (summed shard phases "
           + " ".join(f"{k}={v:.2f}s" for k, v in split.items())
           + f"); recall@10 of {NQ_SMALL} surviving rows {pre:.4f} -> "
-          f"{post:.4f} (ratio {ratio:.4f})", flush=True)
-    if ratio < 0.98 or k3["launches"] <= 0:
+          f"{post:.4f} (ratio {ratio:.4f}); K4 launches {k4}", flush=True)
+    if ratio < 0.98 or k3["launches"] <= 0 or k4 <= 0:
         fail(f"sharded removal: post/pre recall ratio {ratio} < 0.98 or "
-             "no K3 launch")
+             "no K3 or K4 launch")
     out = dict(removals_per_s=N_SHARD_REMOVE / s, seconds=s, phases_s=split,
-               recall_pre=pre, recall_post=post, ratio=ratio, k3=k3)
+               recall_pre=pre, recall_post=post, ratio=ratio, k3=k3,
+               k4_launches=k4)
 
     live = np.flatnonzero(~dropped)
     upd = np.sort(rng.choice(live, N_SHARD_UPDATE, replace=False))
@@ -1715,7 +1883,9 @@ def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
         (N_SHARD_UPDATE, D)).astype(np.float32))
     ids_before = six.ids()
     K3.start()
+    k4_0 = RS.repair_scan.calls
     _, s = timed_query(lambda: six.update(upd, moved))
+    k4 = RS.repair_scan.calls - k4_0
     k3 = K3.finish("the sharded update")
     if not np.array_equal(six.ids(), ids_before) or \
             six.count != n - N_SHARD_REMOVE:
@@ -1731,12 +1901,12 @@ def sharded_churn(six, vecs: np.ndarray, xd) -> dict:
     rec1 = float((found == upd).mean())
     print(f"sharded update: {N_SHARD_UPDATE} rows in {s:.2f} s = "
           f"{N_SHARD_UPDATE / s:.1f} rows/s; recall@1 by the new vectors "
-          f"at ef 64 {rec1:.4f}", flush=True)
-    if rec1 < 0.85 or k3["launches"] <= 0:
+          f"at ef 64 {rec1:.4f}; K4 launches {k4}", flush=True)
+    if rec1 < 0.85 or k3["launches"] <= 0 or k4 <= 0:
         fail(f"sharded update: recall@1 {rec1} < 0.85 at ef 64 or no K3 "
-             "launch")
+             "or K4 launch")
     out["update"] = dict(rows_per_s=N_SHARD_UPDATE / s, recall_at_1=rec1,
-                         k3=k3)
+                         k3=k3, k4_launches=k4)
     return out
 
 
@@ -1928,17 +2098,20 @@ def main() -> int:
           f"device {kind}", flush=True)
 
     t0 = time.perf_counter()
-    _cuda.prebuild(["fused_scan", "block_scores", "accept_scan"])
+    _cuda.prebuild(["fused_scan", "block_scores", "accept_scan",
+                    "repair_scan"])
     K3.install()
-    print(f"kernel build: fused_scan.cu, block_scores.cu and accept_scan.cu "
-          f"together {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_cuda.build_seconds['fused_scan']:.2f} s, "
-          f"{_cuda.build_seconds['block_scores']:.2f} s and "
-          f"{_cuda.build_seconds['accept_scan']:.2f} s)", flush=True)
+    print(f"kernel build: fused_scan.cu, block_scores.cu, accept_scan.cu "
+          f"and repair_scan.cu together {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_cuda.build_seconds['fused_scan']:.2f} s, "
+          f"{_cuda.build_seconds['block_scores']:.2f} s, "
+          f"{_cuda.build_seconds['accept_scan']:.2f} s and "
+          f"{_cuda.build_seconds['repair_scan']:.2f} s)", flush=True)
 
     k1 = kernel_phases()
     k_full = k1["full"]
     k2 = block_phases()
+    k4 = k4_phase()
 
     # -- main path ------------------------------------------------------
     n = N
@@ -2038,7 +2211,8 @@ def main() -> int:
         "snapshot": snap, "reference_snapshot": refsnap,
         "custom_metric": custom, "sharded": sharded,
         "beam_build": beam, "block_path": blockp, "fallback": fallb,
-        "block_scores_phases": k2, "accept_scan_build": k3_build}}),
+        "block_scores_phases": k2, "accept_scan_build": k3_build,
+        "repair_scan_phases": k4}}),
         flush=True)
     print(card, flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2079,7 +2253,15 @@ def main() -> int:
          "launches_sharded_remove": sharded["churn"]["k3"]["launches"],
          "launches_sharded_update":
              sharded["churn"]["update"]["k3"]["launches"],
-         **{k: k3_main[-1][k] for k in keys}}]}), flush=True)
+         **{k: k3_main[-1][k] for k in keys}},
+        {"name": "repair_scan", "route": "cuda",
+         "source": "hnswindex_torch/csrc/repair_scan.cu",
+         "replaces": "none (ops/bruteforce.exact_knn on the removal's scan)",
+         "launches_remove": churn["k4_launches"],
+         "launches_update": churn["update"]["k4_launches"],
+         "launches_sharded_remove": sharded["churn"]["k4_launches"],
+         "launches_sharded_update": sharded["churn"]["update"]["k4_launches"],
+         **{k: k4["wave"][k] for k in keys}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ..ops import distance as dst
-from ..ops.bruteforce import exact_knn, exact_knn2
+from ..ops import repair_scan as RS
+from ..ops.bruteforce import exact_knn2
 from ..utils.profiling import phase
 from .construct import _prune_rows
 from .graph import GraphConfig, GraphState, nbr_slice
@@ -56,8 +57,8 @@ REPAIR_FILL = 0
 #: Affected rows repaired per chunk (rows are disjoint and each chunk reads
 #: only its own rows, so results do not depend on it; it bounds memory).
 REPAIR_CHUNK = 4096
-#: Removed nodes whose candidates one scan or beam call takes.
-SCAN_CHUNK = 4096
+#: Removed nodes whose candidates one beam call or two-stage scan takes.
+SCAN_CHUNK = RS.SCAN_CHUNK
 
 
 def resolve_quality(quality: str, n_remove: int, live_count: int) -> str:
@@ -145,33 +146,46 @@ def affected_masks_all(cfg: GraphConfig, state: GraphState,
     return torch.stack(aff), torch.stack(mul)
 
 
+def two_stage_scan(state: GraphState) -> bool:
+    """Whether the exact repair scan is two-stage (``exact_knn2``): a
+    coarse mirror and 2^20 rows of capacity or more.  Otherwise it is
+    ``ops/repair_scan``."""
+    return state.coarse_table is not None and state.capacity >= (1 << 20)
+
+
 def exact_repair_candidates(cfg: GraphConfig, state: GraphState,
                             scan_ids: torch.Tensor, layer: int,
-                            remove_ef: int, nscan: int | None = None):
+                            remove_ef: int, nscan: int | None = None,
+                            timer=None):
     """The ``remove_ef`` nearest active rows of level >= ``layer`` to each
     removed node ``scan_ids (S,)`` (the exact form of the reference's beam,
     GraphConnector.cs:96; the wave is inactive already, so it excludes
-    itself).  The scan covers the slot prefix ``nscan``; two-stage (K1 +
-    f32 rescore, ``exact_knn2``) on a corpus of 2^20 rows or more, with a
-    narrow survivor set since the repair reads only a prefix of each list.
-    Returns (S, remove_ef) int64 ids, -1 padded."""
+    itself).  The scan covers the slot prefix ``nscan``.  Below 2^20 rows
+    of capacity the ranking table (float32 or bfloat16) is scanned by one
+    call of ``ops/repair_scan`` for all of ``scan_ids``: kernel K4 on the
+    card, its plain twin (``exact_knn`` in query chunks) on the CPU.  On a
+    corpus of 2^20 rows or more the scan is two-stage (K1 + f32 rescore,
+    ``exact_knn2``), with a narrow survivor set since the repair reads
+    only a prefix of each list.  ``timer`` tallies K4's launches under
+    ``remove.scan_calls``.  Returns (S, remove_ef) int64 ids, -1 padded."""
     C = state.capacity
     ns = C if nscan is None else min(nscan, C)
     allowed = (state.active & (state.level >= layer))[:ns]
     ct = state.coarse_table
-    out = []
-    for s0 in range(0, scan_ids.shape[0], SCAN_CHUNK):
-        sid = scan_ids[s0:s0 + SCAN_CHUNK]
-        q = state.vectors[sid.long().clamp(0, C - 1)]
-        if ct is not None and C >= (1 << 20):
-            _, ids = exact_knn2(cfg.metric, state.vectors, ct[:ns],
-                                state.norms[:ns], allowed, q, remove_ef,
-                                oversample=2, survivor_floor=64)
-        else:
-            _, ids = exact_knn(cfg.metric, state.vlo[:ns], state.norms[:ns],
-                               allowed, q, remove_ef)
-        out.append(torch.where(sid[:, None] >= 0, ids, -1))
-    return torch.cat(out, dim=0)
+    q = state.vectors[scan_ids.long().clamp(0, C - 1)]
+    n0 = RS.repair_scan.calls
+    if two_stage_scan(state):
+        ids = torch.cat([
+            exact_knn2(cfg.metric, state.vectors, ct[:ns], state.norms[:ns],
+                       allowed, q[s0:s0 + SCAN_CHUNK], remove_ef,
+                       oversample=2, survivor_floor=64)[1]
+            for s0 in range(0, q.shape[0], SCAN_CHUNK)])
+    else:
+        _, ids = RS.repair_scan(cfg.metric, state.vlo[:ns], state.norms[:ns],
+                                allowed, q, remove_ef)
+    if timer is not None:
+        timer.count("remove.scan_calls", RS.repair_scan.calls - n0)
+    return torch.where(scan_ids[:, None] >= 0, ids, -1)
 
 
 def repair_candidates(cfg: GraphConfig, state: GraphState,
@@ -286,9 +300,10 @@ def remove_from_state(cfg: GraphConfig, state: GraphState, arr,
     built-in metrics) or beams.  Affected rows that lost one neighbour
     repair at fan-in 1 and ``span_1``, the others at ``fanin``/``span``.
     ``timer`` (a PhaseTimer) records the phases ``mark``, ``affected``,
-    ``candidates`` and ``repair``, and tallies ``remove.waves`` and the
+    ``candidates`` and ``repair``, and tallies ``remove.waves``, the
     affected rows re-pruned at fan-in 1 (``remove.affected_one``) and at
-    the wider fan-in (``remove.affected_multi``), summed over layers."""
+    the wider fan-in (``remove.affected_multi``), summed over layers, and
+    the exact scans' K4 launches (``remove.scan_calls``)."""
     arr = np.asarray(arr, dtype=np.int64).ravel()
     if arr.size == 0:
         return
@@ -297,6 +312,11 @@ def remove_from_state(cfg: GraphConfig, state: GraphState, arr,
     r_fanin, r_span, r_span1, r_fill = repair_widths(quality)
     if exact_candidates is None:
         exact_candidates = not dst.is_custom(cfg.metric)
+    if (exact_candidates and state.vectors.is_cuda and remove_ef > RS.KMAX
+            and not two_stage_scan(state)):
+        raise ValueError(f"remove_max_candidates={remove_ef}: the card's "
+                         f"exact repair scan (K4) keeps at most {RS.KMAX} "
+                         f"candidates a removed row")
     C = state.capacity
     dev = state.device
     # candidate-scan prefix: the smallest power of 2 (from 8,192) covering
@@ -332,7 +352,7 @@ def remove_from_state(cfg: GraphConfig, state: GraphState, arr,
             with phase(timer, "candidates"):
                 if exact_candidates:
                     scand = exact_repair_candidates(cfg, state, scan, layer,
-                                                    remove_ef, ns)
+                                                    remove_ef, ns, timer)
                 else:
                     scand = repair_candidates(cfg, state, scan, rmask, layer,
                                               remove_ef, max_iters)

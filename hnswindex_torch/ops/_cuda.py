@@ -1,8 +1,8 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled with
+Each ``csrc/<name>.cu`` exposes plain C entry points and is compiled with
 ``nvcc`` into its own shared library at first use, then loaded with
-``ctypes``, which gets the entry point's signature (``SIGNATURES``) once,
+``ctypes``, which gets the entry points' signatures (``SIGNATURES``) once,
 at load.  Nothing is compiled when a module is imported: the CPU paths
 never need ``nvcc``.  Libraries land in ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), named by a hash of the source and
@@ -27,12 +27,15 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: name -> (C entry point, its argument types); every entry point returns
+_IP = ctypes.POINTER(ctypes.c_int)
+#: name -> {C entry point: its argument types}; every entry point returns
 #: an ``int`` error code
 SIGNATURES = {
-    "fused_scan": ("hnsw_lane_min_scan", [_P] * 9 + [_I] * 5 + [_P]),
-    "block_scores": ("hnsw_block_scores", [_P] * 8 + [_I] * 10 + [_P]),
-    "accept_scan": ("hnsw_accept_scan", [_P] * 4 + [_I] * 3 + [_P]),
+    "fused_scan": {"hnsw_lane_min_scan": [_P] * 9 + [_I] * 5 + [_P]},
+    "block_scores": {"hnsw_block_scores": [_P] * 8 + [_I] * 10 + [_P]},
+    "accept_scan": {"hnsw_accept_scan": [_P] * 4 + [_I] * 3 + [_P]},
+    "repair_scan": {"hnsw_repair_scan_plan": [_I] * 3 + [_IP] * 2,
+                    "hnsw_repair_scan": [_P] * 10 + [_I] * 7 + [_P]},
 }
 #: name -> loaded ctypes library, per process
 _LIBS: dict = {}
@@ -72,9 +75,9 @@ def library(name: str) -> ctypes.CDLL:
         os.replace(tmp, out)
     build_seconds[name] = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
-    entry, argtypes = SIGNATURES[name]
-    fn = getattr(lib, entry)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    for entry, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     _LIBS[name] = lib
     return lib
 

@@ -39,7 +39,20 @@ invalid columns included; a 20,000-row build and a removal repair on the
 card give the same tables with K3 as with the twin, and each prune on the
 card is one launch and no column step.  The one-pass upper connect builds
 the per-layer loop's tables bit for bit on the card at 20,000 rows, with
-one K3 launch a wave for its prune and one for its overflow re-prune."""
+one K3 launch a wave for its prune and one for its overflow re-prune.
+The repair scan (K4) against its twin (``exact_knn`` in query chunks) at
+the churn cell's shape (32,768 queries, 1M rows, D=100, k=100) and with
+its level >= 1 mask (scanned as a gathered copy of those rows), at D=128,
+960 and 37, at k=256 and 512, with fewer allowed rows than k and on a
+bfloat16 table, for sq_euclid, cosine and ucosine: the same +inf /
+-1 padding, sorted distances within 1e-5 relative plus 1e-6 of the norms'
+scale (qn + cn for sq_euclid, 1 for the cosines: float32 sums in another
+order), each differing id a float64 near-tie within twice that, at most
+0.1% of ids differing, one launch counted a call, and repeat calls
+bit-identical; its split plan at the old rule's cases; the removal's
+scan below 2^20 rows is one launch for all of a layer's scan ids, tallied
+on the timer, for a float32 and a bfloat16 table, and a removal asking
+for more candidates than K4 keeps raises before it touches the index."""
 
 import functools
 
@@ -786,6 +799,234 @@ def test_exact_repair_candidates_through_the_kernel_on_card(dev,
     assert got.shape == want.shape == (512, 100)
     assert (got == want).float().mean().item() >= 0.999
     assert not torch.isin(got, scan).any()
+
+
+def _repair_case(metric, S, ns, D, dev, seed, upper=False, n_allowed=None):
+    """Rows (unit rows for ucosine; row 5 zero), their norms, the allowed
+    mask of a repair scan (about 95% active; with ``upper`` also the ~6%
+    of level >= 1; or exactly ``n_allowed`` rows) and S queries: rows
+    taken out of the mask, as a wave is, moved slightly."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((ns, D), generator=g, device=dev)
+    if metric == "ucosine":
+        x = x / x.norm(dim=1, keepdim=True)
+    x[5] = 0.0
+    allowed = torch.rand((ns,), generator=g, device=dev) < 0.95
+    if upper:
+        allowed &= torch.rand((ns,), generator=g, device=dev) < 0.06
+    if n_allowed is not None:
+        allowed[:] = False
+        allowed[torch.randperm(ns, generator=g, device=dev)[:n_allowed]] = True
+    rows = torch.randint(0, ns, (S,), generator=g, device=dev)
+    allowed[rows] = False
+    q = x[rows] + 0.01 * torch.rand((S, D), generator=g, device=dev)
+    return x, tdst.norm_data(metric, x), allowed, q.contiguous()
+
+
+def _dist64(metric, q, v, qn=None, vn=None):
+    """Float64 distances of rows ``q (B, D)`` to ``v (B, D)``, with the
+    norm data ``qn``, ``vn`` where given (the float32 rows' norms, which
+    a bfloat16 table's distances keep)."""
+    q, v = q.double(), v.double()
+    qn = tdst.norm_data(metric, q) if qn is None else qn.double()
+    vn = tdst.norm_data(metric, v) if vn is None else vn.double()
+    return tdst.from_dot(metric, (q * v).sum(-1), qn, vn)
+
+
+def _assert_repair_close(metric, x, norms, q, kd, ki, td, ti,
+                         cap="positions"):
+    """K4's (kd, ki) against the twin's (td, ti): the same padding; sorted
+    distances within 1e-5 relative plus 1e-6 of the norms' scale (qn + cn
+    for sq_euclid, 1 for the cosines: the rounding of float32 sums taken
+    in another order); every differing id a near-tie, its float64 distance
+    within twice that of the twin's id's; at most 0.1% of ids differ
+    (``cap="positions"``), or, with ``cap="set"``, at most 0.1% of K4's
+    ids are missing from the twin's list: past k = 256 the cosine's
+    float32 rounding (1.6e-7 here, the twin divides by the norms, K4
+    multiplies by their reciprocals) reorders near-ties inside the list
+    on about 0.12% of its positions at k = 512, while the lists hold the
+    same rows.  A bfloat16 table ``x`` is held to the products of the
+    rounded queries and the float32 norms."""
+    fin = torch.isfinite(td)
+    assert torch.equal(torch.isfinite(kd), fin)
+    assert bool((ki[~fin] == -1).all()) and bool((ti[~fin] == -1).all())
+    assert bool((kd[:, 1:] >= kd[:, :-1])[fin[:, 1:]].all())
+    if metric == "sq_euclid":
+        scale = tdst.norm_data(metric, q)[:, None] + norms[ti.clamp(min=0)]
+    else:
+        scale = torch.ones_like(td)
+    tol = 1e-5 * td.abs() + 1e-6 * scale
+    assert bool(((kd - td).abs() <= tol)[fin].all())
+    diff = (ki != ti) & fin
+    r, c = diff.nonzero(as_tuple=True)
+    if r.numel() and x.dtype == torch.bfloat16:
+        qr, qn = q[r].to(x.dtype), tdst.norm_data(metric, q[r])
+        dk = _dist64(metric, qr, x[ki[r, c]], qn, norms[ki[r, c]])
+        dt = _dist64(metric, qr, x[ti[r, c]], qn, norms[ti[r, c]])
+        assert bool(((dk - dt).abs() <= 2 * tol[r, c]).all())
+    elif r.numel():
+        dk = _dist64(metric, q[r], x[ki[r, c]])
+        dt = _dist64(metric, q[r], x[ti[r, c]])
+        assert bool(((dk - dt).abs() <= 2 * tol[r, c]).all())
+    if cap == "set":
+        missing = ~(ki[:, :, None] == ti[:, None, :]).any(-1)
+        assert missing.float().mean().item() <= 1e-3
+    else:
+        assert diff.float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("metric", ["sq_euclid", "cosine", "ucosine"])
+@pytest.mark.parametrize("S,ns,D,k,case", [
+    (32768, 1_000_000, 100, 100, "all"),    # the churn cell's full wave
+    (2048, 1_000_000, 100, 100, "upper"),   # its level >= 1 members: splits
+    (4096, 300_007, 128, 100, "all"),
+    (1024, 100_003, 960, 100, "all"),
+    (333, 5_003, 37, 256, "all"),           # element loads, k past 128
+    (300, 20_000, 100, 100, "few"),         # 60 allowed rows: -1 tails
+    (4096, 300_007, 100, 100, "bf16"),      # a bf16 table, 8-byte loads
+    (1000, 200_003, 37, 100, "bf16"),       # bf16 element loads
+    (700, 20_003, 100, 512, "all"),         # the widest top-k
+    (257, 100_003, 64, 400, "upper"),       # gathered rows, k past 256
+])
+def test_repair_scan_matches_twin_on_card(dev, metric, S, ns, D, k, case):
+    from hnswindex_torch.ops import repair_scan as RS
+    x, norms, allowed, q = _repair_case(
+        metric, S, ns, D, dev, seed=S + D, upper=case == "upper",
+        n_allowed=60 if case == "few" else None)
+    if case == "bf16":
+        x = x.to(torch.bfloat16)
+    n0 = RS.repair_scan.calls
+    kd, ki = RS.repair_scan(metric, x, norms, allowed, q, k)
+    torch.cuda.synchronize()
+    assert RS.repair_scan.calls == n0 + 1
+    assert kd.shape == ki.shape == (S, k) and ki.dtype == torch.int64
+    assert bool(allowed[ki[ki >= 0]].all())
+    td, ti = RS.repair_scan_ref(metric, x, norms, allowed, q, k)
+    _assert_repair_close(metric, x, norms, q, kd, ki, td, ti,
+                         cap="set" if k > 256 else "positions")
+    again = RS.repair_scan(metric, x, norms, allowed, q, k)
+    assert torch.equal(again[0], kd) and torch.equal(again[1], ki)
+
+
+def test_repair_scan_checks_its_inputs_on_card(dev):
+    from hnswindex_torch.ops import repair_scan as RS
+    x, norms, allowed, q = _repair_case("sq_euclid", 64, 4096, 32, dev, 3)
+    cases = [
+        (ValueError, (x, norms, allowed.cpu(), q, 10)),
+        (ValueError, (x, norms, allowed, q.T.contiguous().T, 10)),
+        (ValueError, (x, norms, allowed, q, RS.KMAX + 1)),
+        (TypeError, (x, norms, allowed, q.half(), 10)),
+    ]
+    for exc, args in cases:
+        with pytest.raises(exc):
+            RS.repair_scan("sq_euclid", *args)
+
+
+@pytest.mark.parametrize("S,ns,k,want_p", [
+    (32768, 1_007_616, 100, 1),     # the churn cell's first wave
+    (2_000, 1_007_616, 100, 15),    # its layer-1 members, ungathered
+    (20_000, 1_007_616, 100, 5),    # a wave's ragged rest
+    (5, 3_000, 256, 1),             # too few tiles to split
+    (1, 1_000_000, 256, 8),         # k caps the union the sort takes
+    (1, 1_000_000, 512, 4),
+])
+def test_repair_scan_plan_fills_the_card_in_whole_tiles(dev, S, ns, k,
+                                                         want_p):
+    """The kernel's split plan: whole 128-row tiles, none empty, at most
+    16 splits and 2,048 entries for the sort; on a 132-SM card the counts
+    the rule gives."""
+    import ctypes
+    from hnswindex_torch.ops import _cuda
+    P, rows = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(dev):
+        err = _cuda.library("repair_scan").hnsw_repair_scan_plan(
+            S, ns, k, ctypes.byref(P), ctypes.byref(rows))
+    assert err == 0
+    P, rows = P.value, rows.value
+    assert rows % 128 == 0 and (P - 1) * rows < ns <= P * rows
+    assert 1 <= P <= 16 and P * k <= 2048
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert P == want_p
+
+
+def test_removal_scan_below_the_gate_is_one_launch_on_card(dev):
+    """At 2^20 - 4,096 rows of capacity the removal's candidate scan is
+    one K4 launch for all 4,100 scan ids (-1 among them), tallied on the
+    timer, with the twin's ids on >= 0.999 of entries."""
+    from hnswindex_torch.core import graph as G
+    from hnswindex_torch.core import remove as TR
+    from hnswindex_torch.ops import repair_scan as RS
+    from hnswindex_torch.utils.profiling import PhaseTimer
+    C, D = (1 << 20) - 4096, 100
+    g = torch.Generator(device=dev).manual_seed(29)
+    cfg = G.GraphConfig(dim=D)
+    st = G.empty_state(cfg, C, dev)
+    G.write_rows(st, cfg, torch.arange(C, device=dev),
+                 torch.rand((C, D), generator=g, device=dev),
+                 torch.zeros(C, dtype=torch.int32, device=dev))
+    scan = torch.randperm(C, generator=g, device=dev)[:4099]
+    st.active[scan] = False
+    scan = torch.cat([scan, scan.new_full((1,), -1)])
+    timer = PhaseTimer(dev)
+    n0 = RS.repair_scan.calls
+    got = TR.exact_repair_candidates(cfg, st, scan, 0, 100, timer=timer)
+    torch.cuda.synchronize()
+    assert RS.repair_scan.calls == n0 + 1
+    assert timer.seconds()["remove.scan_calls"] == 1
+    assert bool((got[-1] == -1).all())
+    _, want = RS.repair_scan_ref(cfg.metric, st.vectors, st.norms, st.active,
+                                 st.vectors[scan[:-1]], 100)
+    assert (got[:-1] == want).float().mean().item() >= 0.999
+    assert not torch.isin(got, scan[:-1]).any()
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_removal_scan_of_a_bf16_table_is_one_launch_on_card(dev, layer):
+    """A bfloat16 ranking table below the gate: one K4 launch a layer
+    (the level >= 1 rows as a gathered copy), tallied on the timer, with
+    the twin's ids on that table on >= 0.999 of entries."""
+    from hnswindex_torch.core import graph as G
+    from hnswindex_torch.core import remove as TR
+    from hnswindex_torch.ops import repair_scan as RS
+    from hnswindex_torch.utils.profiling import PhaseTimer
+    C, D = 200_000, 100
+    g = torch.Generator(device=dev).manual_seed(31 + layer)
+    cfg = G.GraphConfig(dim=D, rank_dtype="bfloat16")
+    st = G.empty_state(cfg, C, dev)
+    lvl = (torch.rand((C,), generator=g, device=dev) < 0.06).to(torch.int32)
+    G.write_rows(st, cfg, torch.arange(C, device=dev),
+                 torch.rand((C, D), generator=g, device=dev), lvl)
+    assert st.vlo.dtype == torch.bfloat16
+    scan = (lvl >= layer).nonzero()[:, 0][:2000]
+    st.active[scan] = False
+    timer = PhaseTimer(dev)
+    n0 = RS.repair_scan.calls
+    got = TR.exact_repair_candidates(cfg, st, scan, layer, 100, timer=timer)
+    torch.cuda.synchronize()
+    assert RS.repair_scan.calls == n0 + 1
+    assert timer.seconds()["remove.scan_calls"] == 1
+    allowed = st.active & (st.level >= layer)
+    _, want = RS.repair_scan_ref(cfg.metric, st.vlo, st.norms, allowed,
+                                 st.vectors[scan], 100)
+    assert bool(allowed[got[got >= 0]].all())
+    assert (got == want).float().mean().item() >= 0.999
+
+
+def test_removal_past_the_kernels_width_raises_on_card(dev):
+    """Below the gate a removal asking for more than K4's 512 candidates
+    a removed row raises before it marks anything."""
+    from hnswindex_torch.core import graph as G
+    from hnswindex_torch.core import remove as TR
+    from hnswindex_torch.ops import repair_scan as RS
+    C, D = 5_000, 16
+    cfg = G.GraphConfig(dim=D)
+    st = G.empty_state(cfg, C, dev)
+    G.write_rows(st, cfg, torch.arange(C, device=dev),
+                 torch.rand((C, D), device=dev),
+                 torch.zeros(C, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="at most 512"):
+        TR.remove_from_state(cfg, st, np.arange(10), RS.KMAX + 1)
+    assert bool(st.active.all())
 
 
 def _sharded_corpus(n, dim, seed):
